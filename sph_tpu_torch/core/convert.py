@@ -1,0 +1,45 @@
+"""Carry a state or parameter set across from numpy.
+
+Each function takes a dict of numpy arrays, one per field of
+``FluidParams`` / ``ParticleState`` (the field names are those of the
+``sph_tpu`` structures), and returns the port's object on ``device``.
+The tests use them to feed the JAX package and the port the same inputs.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from sph_tpu_torch.core.params import FluidParams
+from sph_tpu_torch.core.state import ParticleState
+
+
+def _fields(cls, d: Mapping[str, np.ndarray]):
+    names = [f.name for f in dataclasses.fields(cls)]
+    missing = [k for k in names if k not in d]
+    if missing:
+        raise KeyError(f"{cls.__name__} fields missing: {missing}")
+    return names
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    elif a.dtype.kind in "iub":
+        a = a.astype(np.int32)
+    return torch.as_tensor(np.array(a, order="C"), device=device)
+
+
+def params_from_numpy(d: Mapping[str, np.ndarray], device=None) -> FluidParams:
+    vals = {k: _tensor(d[k], device) for k in _fields(FluidParams, d)
+            if k != "shape_type"}
+    return FluidParams(shape_type=int(np.asarray(d["shape_type"])), **vals)
+
+
+def state_from_numpy(d: Mapping[str, np.ndarray], device=None) -> ParticleState:
+    return ParticleState(**{k: _tensor(d[k], device)
+                            for k in _fields(ParticleState, d)})

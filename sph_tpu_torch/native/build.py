@@ -1,0 +1,91 @@
+"""Build ``csrc/*.cu`` with nvcc and load it with ctypes.
+
+Counterpart of ``sph_tpu/native/__init__.py:23-51``, with no fallback:
+a missing ``nvcc`` or a failed build raises.  The library is built at
+first use into ``sph_tpu_torch/_build/``, named by a hash of the sources
+and the flags, so an edited source builds anew and an unchanged one is
+loaded as it is.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+class SweepParamsC(ctypes.Structure):
+    """ctypes mirror of ``SphSweepParams`` in ``csrc/sweeps.h``."""
+    _fields_ = [(name, ctypes.c_float) for name in (
+        "h", "h2", "mass", "spiky", "visc_lap", "poly6", "mu", "st",
+        "gx", "gy", "gz", "dt", "rho0", "gas_k", "rho_floor")] + [
+        (name, ctypes.c_int) for name in ("nx", "ny", "nz")]
+
+
+def _sources():
+    names = sorted(f for f in os.listdir(CSRC_DIR)
+                   if f.endswith((".cu", ".cuh", ".h")))
+    return [os.path.join(CSRC_DIR, f) for f in names]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH, CUDA_HOME/bin, "
+                       "/usr/local/cuda/bin): the sweep kernels cannot be "
+                       "built")
+
+
+def library_path() -> str:
+    """Build the shared library if it is not built yet; return its path."""
+    srcs = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in srcs:
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
+    out = os.path.join(BUILD_DIR, f"libsph_sweeps_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in srcs if s.endswith(".cu")]]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({res.returncode}): "
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded sweep library with its C signatures declared."""
+    lib = ctypes.CDLL(library_path())
+    p, i = ctypes.c_void_p, ctypes.c_int
+    prm = ctypes.POINTER(SweepParamsC)
+    lib.sph_density.argtypes = [p, p, p, p, i, prm, p, p, p]
+    lib.sph_density.restype = i
+    lib.sph_force_xsph.argtypes = [p, p, p, p, p, p, i, prm, p, p, p, p]
+    lib.sph_force_xsph.restype = i
+    return lib

@@ -1,0 +1,346 @@
+"""The cell engine's two neighbor sweeps and its substep
+(counterpart of ``sph_tpu/neighbors/pallas_sweeps.py``).
+
+1. **density**    — poly6 pair sums (``shaders/SPHFluid.comp:89-106``),
+   floored, with the EOS pressure.
+2. **force_xsph** — spiky-gradient pressure + viscosity Laplacian +
+   color-field surface tension, gravity, semi-implicit Euler, the XSPH
+   sweep (fresh self pos/vel against stale neighbor pos/vel) and its
+   apply, and the CFL speed cap (``SPHFluid.comp:109-207``).
+
+Each sweep is a CUDA kernel (``csrc/sweeps.cu``) with a plain torch
+version of the same function beside it.  The wrapper picks by the
+device of its tensors: CPU tensors take the plain version, CUDA tensors
+launch the kernel, anything else raises.  Both read the same inputs: rows
+sorted by cell key and the per-cell row ranges of ``cells.py``.
+
+Ghost boundary sources are not ported yet (ROADMAP queue 1 item 3,
+``ghost_1m``): :func:`prepare` raises on a state that holds ghosts.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from sph_tpu_torch.core.params import FluidParams, SimConfig
+from sph_tpu_torch.core.state import ParticleState
+from sph_tpu_torch.native import build
+from sph_tpu_torch.neighbors import cells
+from sph_tpu_torch.physics import common as C
+from sph_tpu_torch.physics.kernels import _PI
+
+# Rows per chunk of the plain versions: candidates are gathered as
+# [rows, 9 * widest range] tensors, so this bounds their memory.
+_PLAIN_CHUNK = 8192
+
+# Kernel launches since the last reset_launches() — only the CUDA path
+# counts, and only where it launches.
+LAUNCHES = {"density": 0, "force_xsph": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepParams:
+    """The sweeps' constants on the host (the JAX kernels' ``pvec``,
+    ``pallas_sweeps.py:104-115``), plus the grid dims."""
+    h: float
+    h2: float
+    mass: float
+    spiky: float
+    visc_lap: float
+    poly6: float
+    mu: float
+    st: float
+    gx: float
+    gy: float
+    gz: float
+    dt: float
+    rho0: float
+    gas_k: float
+    rho_floor: float
+    nx: int
+    ny: int
+    nz: int
+
+    @property
+    def num_cells(self) -> int:
+        return self.nx * self.ny * self.nz
+
+
+def make_pvec(params: FluidParams, dt, dims: Tuple[int, int, int]
+              ) -> SweepParams:
+    """Derive the sweep constants in float32 on the params' device and
+    bring them to the host in one copy."""
+    h = params.h
+    vec = torch.stack([
+        h, h * h, params.mass,
+        -45.0 / (_PI * h**6), 45.0 / (_PI * h**6),
+        315.0 / (64.0 * _PI * h**9),
+        params.viscosity, params.surface_tension,
+        params.gravity[0], params.gravity[1], params.gravity[2],
+        torch.as_tensor(dt, dtype=torch.float32, device=h.device),
+        params.rest_density, params.gas_constant,
+        C.DENSITY_FLOOR_FRAC * params.rest_density,
+    ]).to(torch.float32).tolist()
+    return SweepParams(*vec, *(int(d) for d in dims))
+
+
+# ---------------------------------------------------------------------------
+# plain torch versions
+# ---------------------------------------------------------------------------
+
+def _candidates(key: torch.Tensor, cell_start: torch.Tensor,
+                cell_end: torch.Tensor, pv: SweepParams):
+    """Candidate rows of each (fluid) key's 3x3x3 block: the 9 contiguous
+    x-ranges, padded to the widest and masked.  Returns idx, mask
+    [m, 9 * width]."""
+    x = key % pv.nx
+    t = key // pv.nx
+    z = t % pv.nz
+    y = t // pv.nz
+    x0 = (x - 1).clamp_min(0)
+    x1 = (x + 1).clamp_max(pv.nx - 1)
+    starts, ends = [], []
+    for dy in (-1, 0, 1):
+        for dz in (-1, 0, 1):
+            yy, zz = y + dy, z + dz
+            ok = (yy >= 0) & (yy < pv.ny) & (zz >= 0) & (zz < pv.nz)
+            row = pv.nx * (zz.clamp(0, pv.nz - 1)
+                           + pv.nz * yy.clamp(0, pv.ny - 1))
+            s = cell_start[(row + x0).long()]
+            starts.append(torch.where(ok, s, 0))
+            ends.append(torch.where(ok, cell_end[(row + x1).long()], 0))
+    start = torch.stack(starts, 1).long()                  # [m, 9]
+    end = torch.stack(ends, 1).long()
+    width = int((end - start).max()) if key.numel() else 0
+    idx = start[:, :, None] + torch.arange(width, device=key.device)
+    mask = idx < end[:, :, None]
+    idx = torch.where(mask, idx, 0)
+    return idx.reshape(key.shape[0], -1), mask.reshape(key.shape[0], -1)
+
+
+def _fluid_chunks(key: torch.Tensor, pv: SweepParams):
+    rows = torch.nonzero(key < pv.num_cells).squeeze(1)
+    for c0 in range(0, rows.shape[0], _PLAIN_CHUNK):
+        yield rows[c0:c0 + _PLAIN_CHUNK]
+
+
+def density_plain(key, pos, cell_start, cell_end, pv: SweepParams):
+    """Plain torch version of ``density_kernel``: (rho, pres) [N]."""
+    rho = torch.zeros(key.shape[0], dtype=torch.float32, device=key.device)
+    pres = torch.zeros_like(rho)
+    for r in _fluid_chunks(key, pv):
+        idx, mask = _candidates(key[r], cell_start, cell_end, pv)
+        d = pos[r, None, :] - pos[idx]
+        r2 = torch.sum(d * d, dim=-1)
+        dd = pv.h2 - r2
+        raw = torch.sum(torch.where(mask & (r2 < pv.h2), dd * dd * dd, 0.0),
+                        dim=1)
+        rr = torch.clamp_min(pv.mass * pv.poly6 * raw, pv.rho_floor)
+        rho[r] = rr
+        pres[r] = torch.clamp_min(pv.gas_k * (rr - pv.rho0), 0.0)
+    return rho, pres
+
+
+def _norm(v):
+    return torch.sqrt(torch.sum(v * v, dim=-1))
+
+
+def force_xsph_plain(key, pos, vel, rho, cell_start, cell_end,
+                     pv: SweepParams):
+    """Plain torch version of ``force_xsph_kernel``: (npos, nvel, acc)."""
+    npos, nvel = pos.clone(), vel.clone()
+    acc = torch.zeros_like(pos)
+    g = torch.tensor([pv.gx, pv.gy, pv.gz], dtype=torch.float32,
+                     device=pos.device)
+    for r in _fluid_chunks(key, pv):
+        idx, cand = _candidates(key[r], cell_start, cell_end, pv)
+        cand = cand & (idx != r[:, None])
+        pj, vj, rhoj = pos[idx], vel[idx], rho[idx]
+        pi, vi, rhoi = pos[r], vel[r], rho[r]
+        presi = torch.clamp_min(pv.gas_k * (rhoi - pv.rho0), 0.0)
+        presj = torch.clamp_min(pv.gas_k * (rhoj - pv.rho0), 0.0)
+
+        # pass 1: pressure, viscosity, color field
+        rij = pi[:, None, :] - pj
+        rr = _norm(rij)
+        live = cand & (rr < pv.h) & (rhoj > 0.0)
+        m_over_rho = torch.where(live, pv.mass / torch.clamp_min(rhoj, 1e-12),
+                                 0.0)
+        dcl = pv.h - rr
+        gmag = torch.where(rr > 0.0,
+                           pv.spiky * dcl * dcl / torch.clamp_min(rr, 1e-12),
+                           0.0)
+        lapw = pv.visc_lap * dcl
+        ps = gmag * (-(presi[:, None] + presj) * 0.5 * m_over_rho)
+        vs = m_over_rho * lapw
+        gs = gmag * m_over_rho
+        fp = torch.sum(rij * ps[..., None], dim=1)
+        fv = torch.sum((vj - vi[:, None, :]) * vs[..., None], dim=1)
+        gc = torch.sum(rij * gs[..., None], dim=1)
+        lc = torch.sum(vs, dim=1)
+
+        # surface tension, gravity, integrate
+        glen = _norm(gc)
+        st = torch.where((glen > C.SURFACE_THRESHOLD)[:, None],
+                         (-pv.st * lc)[:, None]
+                         * (gc / torch.clamp_min(glen, 1e-30)[:, None]), 0.0)
+        a = ((fp + pv.mu * fv + g * rhoi[:, None] + st)
+             / torch.clamp_min(rhoi, 1e-12)[:, None])
+        nv = (vi + a * pv.dt) * C.VELOCITY_DAMPING
+        np_ = pi + nv * pv.dt
+
+        # pass 2: XSPH, fresh self against stale neighbors
+        d = np_[:, None, :] - pj
+        r2 = torch.sum(d * d, dim=-1)
+        near = cand & (r2 < pv.h2) & (rhoj > 0.0)
+        dd = pv.h2 - r2
+        w = torch.where(near, pv.poly6 * dd * dd * dd, 0.0)
+        mw = w * pv.mass / torch.clamp_min(rhoj, 1e-12)
+        xs = torch.sum((vj - nv[:, None, :]) * mw[..., None], dim=1)
+        xn = torch.sum(w, dim=1)
+
+        # XSPH apply + CFL cap
+        v = nv + torch.where(
+            (xn > 0.0)[:, None],
+            C.XSPH_COEFF * (xs / torch.clamp_min(xn, 1e-30)[:, None]), 0.0)
+        max_speed = C.CFL_FRACTION * pv.h / max(pv.dt, 1e-6)
+        sp = _norm(v)
+        scale = torch.where(sp > max_speed,
+                            max_speed / torch.clamp_min(sp, 1e-30), 1.0)
+        npos[r] = np_
+        nvel[r] = v * scale[:, None]
+        acc[r] = a
+    return npos, nvel, acc
+
+
+# ---------------------------------------------------------------------------
+# wrappers: plain version on CPU tensors, the CUDA kernel on CUDA tensors
+# ---------------------------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
+           device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _check_rows(key, pos, cell_start, cell_end, pv: SweepParams, **more):
+    dev = key.device
+    n = key.shape[0]
+    if dev.type != "cuda":
+        raise ValueError(f"the sweep kernels take CUDA or CPU tensors, "
+                         f"got {dev}")
+    if n >= 2**31 // 3:
+        raise ValueError(f"{n} rows overflow the kernels' int32 indexing")
+    _check("key", key, torch.int32, (n,), dev)
+    _check("pos", pos, torch.float32, (n, 3), dev)
+    _check("cell_start", cell_start, torch.int32, (pv.num_cells,), dev)
+    _check("cell_end", cell_end, torch.int32, (pv.num_cells,), dev)
+    for name, (t, shape) in more.items():
+        _check(name, t, torch.float32, shape, dev)
+
+
+def _c_params(pv: SweepParams) -> build.SweepParamsC:
+    return build.SweepParamsC(*dataclasses.astuple(pv))
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def density(key, pos, cell_start, cell_end, pv: SweepParams):
+    """(rho, pres) [N] of the sorted rows; non-fluid rows get 0."""
+    if key.device.type == "cpu":
+        return density_plain(key, pos, cell_start, cell_end, pv)
+    _check_rows(key, pos, cell_start, cell_end, pv)
+    lib = build.library()
+    n = key.shape[0]
+    rho = torch.empty(n, dtype=torch.float32, device=key.device)
+    pres = torch.empty_like(rho)
+    prm = _c_params(pv)
+    err = lib.sph_density(
+        key.data_ptr(), pos.data_ptr(), cell_start.data_ptr(),
+        cell_end.data_ptr(), n, ctypes.byref(prm), rho.data_ptr(),
+        pres.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
+    _launched("density", err)
+    return rho, pres
+
+
+def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams):
+    """(npos, nvel, acc) [N,3] of the sorted rows; non-fluid rows pass
+    through (npos = pos, nvel = vel, acc = 0)."""
+    if key.device.type == "cpu":
+        return force_xsph_plain(key, pos, vel, rho, cell_start, cell_end, pv)
+    n = key.shape[0]
+    _check_rows(key, pos, cell_start, cell_end, pv,
+                vel=(vel, (n, 3)), rho=(rho, (n,)))
+    lib = build.library()
+    npos = torch.empty_like(pos)
+    nvel = torch.empty_like(vel)
+    acc = torch.empty_like(pos)
+    prm = _c_params(pv)
+    err = lib.sph_force_xsph(
+        key.data_ptr(), pos.data_ptr(), vel.data_ptr(), rho.data_ptr(),
+        cell_start.data_ptr(), cell_end.data_ptr(), n, ctypes.byref(prm),
+        npos.data_ptr(), nvel.data_ptr(), acc.data_ptr(),
+        torch.cuda.current_stream(key.device).cuda_stream)
+    _launched("force_xsph", err)
+    return npos, nvel, acc
+
+
+# ---------------------------------------------------------------------------
+# substep composition
+# ---------------------------------------------------------------------------
+
+def prepare(state: ParticleState, params: FluidParams, dt,
+            config: SimConfig) -> SweepParams:
+    """Per-run constants of the cell engine (the counterpart of the JAX
+    engine's ``build_aux``): the sweep params, after checking that the
+    state holds no ghosts, whose sources the kernels do not take yet."""
+    if bool((state.ghost > 0).any()):
+        raise NotImplementedError(
+            "the cell engine takes no ghost particles yet: ghost sources "
+            "come with ROADMAP queue 1 item 3 (ghost_1m)")
+    return make_pvec(params, dt, config.grid_dims)
+
+
+def reassemble(s: ParticleState, rho, pres, npos, nvel, acc,
+               params: FluidParams) -> ParticleState:
+    """Sweep outputs -> the sorted particle state, with foam.  The sweeps
+    already pass non-fluid rows through (pos, vel kept; acc, rho, pres
+    zero), so only foam needs the fluid mask."""
+    foam = torch.where(s.fluid_mask(),
+                       C.foam_update(s.foam, nvel, rho, params), s.foam)
+    return s.replace(pos=npos, vel=nvel, acc=acc, density=rho,
+                     pressure=pres, foam=foam)
+
+
+def substep(state: ParticleState, params: FluidParams, dt,
+            config: SimConfig, pv: SweepParams | None = None
+            ) -> ParticleState:
+    """One cell-engine substep.  Returns the state in SORTED order
+    (identity lives in ``orig_id``), as the JAX engine does."""
+    if pv is None:
+        pv = prepare(state, params, dt, config)
+    rows = cells.build(state, params, config.grid_dims)
+    s = rows.state
+    rho, pres = density(rows.key, s.pos, rows.cell_start, rows.cell_end, pv)
+    npos, nvel, acc = force_xsph(rows.key, s.pos, s.vel, rho,
+                                 rows.cell_start, rows.cell_end, pv)
+    return reassemble(s, rho, pres, npos, nvel, acc, params)
