@@ -8,8 +8,8 @@
 5. export_4m      — 4M particles with headless frame export.
 
 All five are kept as data; ``build`` raises for the parts of a
-configuration that are not ported yet, so today only ``default_131k``
-builds as configured.
+configuration that are not ported yet, so today ``default_131k`` and
+``ghost_1m`` build as configured.
 """
 from __future__ import annotations
 
@@ -61,7 +61,6 @@ CONFIGS = {
 _IMPL = {"pallas": "cell", "cell": "cell", "brute": "brute"}
 
 _NOT_PORTED = {
-    "ghosts": "ghost boundary shells: ROADMAP queue 1 item 3 (ghost_1m)",
     "wave_impulse": "the wave impulse: ROADMAP queue 1 item 4 "
                     "(rotated_512k)",
     "viz_export": "headless frame export: ROADMAP queue 1 item 5 "
@@ -90,6 +89,9 @@ def build(cfg: Union[str, BenchConfig], seed: int = 0,
         cfg.n_target, h=cfg.h, box_half=cfg.box_half, seed=seed,
         box_euler_deg=cfg.box_euler_deg,
         spawn_rotation=cfg.spawn_rotation)
+    if cfg.ghosts:
+        spawn = S.concat_spawns(
+            spawn, S.spawn_ghost_box_shell(h=cfg.h, box_half=cfg.box_half))
     state = S.state_from_spawn(spawn, device=device)
     params = FluidParams.default(
         device=device,

@@ -232,6 +232,47 @@ def spawn_standard(n_target: int, *, h: float = 0.28, rest_density: float = 1000
     )
 
 
+def spawn_ghost_box_shell(*, h: float = 0.28, box_center=(0.0, 0.0, 0.0),
+                          box_half=(7.0, 7.0, 7.0), layers: int = 1) -> SpawnResult:
+    """Ghost boundary particles on the 6 box faces, tagged per face.
+
+    A lattice shell just outside each face at in-plane spacing 0.85h, one
+    layer at 0.45h outside by default (a second would sit more than h from
+    every interior point).  Face ids: 0 = -X, 1 = +X, 2 = -Y, 3 = +Y,
+    4 = -Z, 5 = +Z.
+    """
+    spacing = 0.85 * h
+    hf = np.asarray(box_half, np.float32)
+    c = np.asarray(box_center, np.float32)
+    all_pos, all_face = [], []
+    for axis in range(3):
+        u_ax, v_ax = [a for a in range(3) if a != axis]
+        nu = max(1, int(np.ceil(2 * hf[u_ax] / spacing)) + 1)
+        nv = max(1, int(np.ceil(2 * hf[v_ax] / spacing)) + 1)
+        us = np.linspace(-hf[u_ax], hf[u_ax], nu).astype(np.float32)
+        vs = np.linspace(-hf[v_ax], hf[v_ax], nv).astype(np.float32)
+        for side in (0, 1):  # -face, +face
+            sgn = -1.0 if side == 0 else 1.0
+            for layer in range(layers):
+                w = sgn * (hf[axis] + (0.45 + 0.9 * layer) * h)
+                uu, vv = np.meshgrid(us, vs, indexing="ij")
+                p = np.zeros((uu.size, 3), np.float32)
+                p[:, axis] = w
+                p[:, u_ax] = uu.reshape(-1)
+                p[:, v_ax] = vv.reshape(-1)
+                all_pos.append(p + c[None, :])
+                all_face.append(np.full((p.shape[0],), axis * 2 + side,
+                                        np.int32))
+    pos = np.concatenate(all_pos, 0)
+    face = np.concatenate(all_face, 0)
+    count = pos.shape[0]
+    return SpawnResult(
+        pos=pos, vel=np.zeros((count, 3), np.float32),
+        ghost=np.ones((count,), np.int32), face=face,
+        color_group=np.zeros((count,), np.int32), count=count,
+    )
+
+
 def concat_spawns(*spawns: SpawnResult) -> SpawnResult:
     return SpawnResult(
         pos=np.concatenate([s.pos for s in spawns], 0),

@@ -27,6 +27,15 @@
 // input (stale) neighbor pos/vel, so npos/nvel/acc go to buffers separate
 // from pos/vel.  Rows whose key is num_cells (ghosts, padding) pass
 // through: rho = pres = 0, npos = pos, nvel = vel, acc = 0.
+//
+// Ghost boundary sources (pallas_sweeps.py's ghost classes, :557-621 and
+// :697-701): when has_ghosts is set, each fluid row walks the same 9 ranges
+// a second time in the ghost structure (contributing ghosts only, sorted by
+// the same key, gpos / gcs / gce).  A ghost source has rho0, P = 0 and
+// v = 0 (brute_force.py / common.finish_density), is never the row itself,
+// and takes the same r < h and r > 0 guards as a fluid source.  Without
+// ghosts the second walk is skipped, so a ghost-free state does no extra
+// work.
 
 #include <cuda_runtime.h>
 
@@ -77,8 +86,9 @@ __device__ __forceinline__ void for_each_candidate(
 __global__ void __launch_bounds__(kBlock)
 density_kernel(const int* __restrict__ key, const float* __restrict__ pos,
                const int* __restrict__ cs, const int* __restrict__ ce, int n,
-               SphSweepParams p, float* __restrict__ rho,
-               float* __restrict__ pres) {
+               const float* __restrict__ gpos, const int* __restrict__ gcs,
+               const int* __restrict__ gce, int has_ghosts, SphSweepParams p,
+               float* __restrict__ rho, float* __restrict__ pres) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int k = key[i];
@@ -88,18 +98,24 @@ density_kernel(const int* __restrict__ key, const float* __restrict__ pos,
     return;
   }
   const float xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
+  const Walk w = walk_of(k, p);
   float sum = 0.f;
-  for_each_candidate(walk_of(k, p), p, cs, ce, [&](int j) {
-    const float dx = xi - __ldg(pos + 3 * j);
-    const float dy = yi - __ldg(pos + 3 * j + 1);
-    const float dz = zi - __ldg(pos + 3 * j + 2);
+  auto add = [&](const float* src, int j) {
+    const float dx = xi - __ldg(src + 3 * j);
+    const float dy = yi - __ldg(src + 3 * j + 1);
+    const float dz = zi - __ldg(src + 3 * j + 2);
     const float r2 = dx * dx + dy * dy + dz * dz;
     if (r2 < p.h2) {
       const float d = p.h2 - r2;
       sum += d * d * d;
     }
-  });
-  // mass * poly6 scale and the density floor (SPHFluid.comp:105), EOS
+  };
+  for_each_candidate(w, p, cs, ce, [&](int j) { add(pos, j); });
+  if (has_ghosts) {
+    for_each_candidate(w, p, gcs, gce, [&](int j) { add(gpos, j); });
+  }
+  // mass * poly6 scale and the density floor (SPHFluid.comp:105), EOS,
+  // after both walks (common.finish_density)
   const float r = fmaxf(p.mass * p.poly6 * sum, p.rho_floor);
   rho[i] = r;
   pres[i] = fmaxf(p.gas_k * (r - p.rho0), 0.f);
@@ -109,7 +125,9 @@ __global__ void __launch_bounds__(kBlock)
 force_xsph_kernel(const int* __restrict__ key, const float* __restrict__ pos,
                   const float* __restrict__ vel, const float* __restrict__ rho,
                   const int* __restrict__ cs, const int* __restrict__ ce,
-                  int n, SphSweepParams p, float* __restrict__ npos,
+                  int n, const float* __restrict__ gpos,
+                  const int* __restrict__ gcs, const int* __restrict__ gce,
+                  int has_ghosts, SphSweepParams p, float* __restrict__ npos,
                   float* __restrict__ nvel, float* __restrict__ acc) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -136,6 +154,27 @@ force_xsph_kernel(const int* __restrict__ key, const float* __restrict__ pos,
   float fpx = 0.f, fpy = 0.f, fpz = 0.f;
   float fvx = 0.f, fvy = 0.f, fvz = 0.f;
   float gcx = 0.f, gcy = 0.f, gcz = 0.f, lc = 0.f;
+  // one source: offset r, distance, its density, pressure and velocity
+  auto pair = [&](float rx, float ry, float rz, float r, float rhoj,
+                  float presj, float vxj, float vyj, float vzj) {
+    const float m_over_rho = p.mass / fmaxf(rhoj, 1e-12f);
+    const float dcl = p.h - r;
+    const float gmag = r > 0.f ? p.spiky * dcl * dcl / fmaxf(r, 1e-12f) : 0.f;
+    const float lapw = p.visc_lap * dcl;
+    const float ps = gmag * (-(presi + presj) * 0.5f * m_over_rho);
+    fpx += rx * ps;
+    fpy += ry * ps;
+    fpz += rz * ps;
+    const float vs = m_over_rho * lapw;
+    fvx += (vxj - vxi) * vs;
+    fvy += (vyj - vyi) * vs;
+    fvz += (vzj - vzi) * vs;
+    const float gs = gmag * m_over_rho;
+    gcx += rx * gs;
+    gcy += ry * gs;
+    gcz += rz * gs;
+    lc += vs;
+  };
   for_each_candidate(w, p, cs, ce, [&](int j) {
     if (j == i) return;
     const float rhoj = __ldg(rho + j);
@@ -144,25 +183,19 @@ force_xsph_kernel(const int* __restrict__ key, const float* __restrict__ pos,
     const float rz = zi - __ldg(pos + 3 * j + 2);
     const float r = sqrtf(rx * rx + ry * ry + rz * rz);
     if (!(r < p.h) || !(rhoj > 0.f)) return;
-    const float m_over_rho = p.mass / fmaxf(rhoj, 1e-12f);
-    const float dcl = p.h - r;
-    const float gmag = r > 0.f ? p.spiky * dcl * dcl / fmaxf(r, 1e-12f) : 0.f;
-    const float lapw = p.visc_lap * dcl;
-    const float presj = fmaxf(p.gas_k * (rhoj - p.rho0), 0.f);
-    const float ps = gmag * (-(presi + presj) * 0.5f * m_over_rho);
-    fpx += rx * ps;
-    fpy += ry * ps;
-    fpz += rz * ps;
-    const float vs = m_over_rho * lapw;
-    fvx += (__ldg(vel + 3 * j) - vxi) * vs;
-    fvy += (__ldg(vel + 3 * j + 1) - vyi) * vs;
-    fvz += (__ldg(vel + 3 * j + 2) - vzi) * vs;
-    const float gs = gmag * m_over_rho;
-    gcx += rx * gs;
-    gcy += ry * gs;
-    gcz += rz * gs;
-    lc += vs;
+    pair(rx, ry, rz, r, rhoj, fmaxf(p.gas_k * (rhoj - p.rho0), 0.f),
+         __ldg(vel + 3 * j), __ldg(vel + 3 * j + 1), __ldg(vel + 3 * j + 2));
   });
+  if (has_ghosts) {
+    for_each_candidate(w, p, gcs, gce, [&](int j) {
+      const float rx = xi - __ldg(gpos + 3 * j);
+      const float ry = yi - __ldg(gpos + 3 * j + 1);
+      const float rz = zi - __ldg(gpos + 3 * j + 2);
+      const float r = sqrtf(rx * rx + ry * ry + rz * rz);
+      if (!(r < p.h)) return;
+      pair(rx, ry, rz, r, p.rho0, 0.f, 0.f, 0.f, 0.f);
+    });
+  }
 
   // --- surface tension, gravity, integrate (SPHFluid.comp:156-171)
   const float glen = sqrtf(gcx * gcx + gcy * gcy + gcz * gcz);
@@ -187,6 +220,16 @@ force_xsph_kernel(const int* __restrict__ key, const float* __restrict__ pos,
 
   // --- pass 2: XSPH, fresh self vs stale neighbors (SPHFluid.comp:177-201)
   float xsx = 0.f, xsy = 0.f, xsz = 0.f, xn = 0.f;
+  // one source within h: squared distance, its density and velocity
+  auto smooth = [&](float r2, float rhoj, float vxj, float vyj, float vzj) {
+    const float d = p.h2 - r2;
+    const float wgt = p.poly6 * d * d * d;
+    const float mw = wgt * p.mass / fmaxf(rhoj, 1e-12f);
+    xsx += (vxj - nvx) * mw;
+    xsy += (vyj - nvy) * mw;
+    xsz += (vzj - nvz) * mw;
+    xn += wgt;
+  };
   for_each_candidate(w, p, cs, ce, [&](int j) {
     if (j == i) return;
     const float rhoj = __ldg(rho + j);
@@ -195,14 +238,19 @@ force_xsph_kernel(const int* __restrict__ key, const float* __restrict__ pos,
     const float dz = npz - __ldg(pos + 3 * j + 2);
     const float r2 = dx * dx + dy * dy + dz * dz;
     if (!(r2 < p.h2) || !(rhoj > 0.f)) return;
-    const float d = p.h2 - r2;
-    const float wgt = p.poly6 * d * d * d;
-    const float mw = wgt * p.mass / fmaxf(rhoj, 1e-12f);
-    xsx += (__ldg(vel + 3 * j) - nvx) * mw;
-    xsy += (__ldg(vel + 3 * j + 1) - nvy) * mw;
-    xsz += (__ldg(vel + 3 * j + 2) - nvz) * mw;
-    xn += wgt;
+    smooth(r2, rhoj, __ldg(vel + 3 * j), __ldg(vel + 3 * j + 1),
+           __ldg(vel + 3 * j + 2));
   });
+  if (has_ghosts) {
+    for_each_candidate(w, p, gcs, gce, [&](int j) {
+      const float dx = npx - __ldg(gpos + 3 * j);
+      const float dy = npy - __ldg(gpos + 3 * j + 1);
+      const float dz = npz - __ldg(gpos + 3 * j + 2);
+      const float r2 = dx * dx + dy * dy + dz * dz;
+      if (!(r2 < p.h2)) return;
+      smooth(r2, p.rho0, 0.f, 0.f, 0.f);
+    });
+  }
 
   // --- XSPH apply (SPHFluid.comp:200-201) and CFL cap (:203-207)
   float vx = nvx, vy = nvy, vz = nvz;
@@ -233,12 +281,15 @@ int grid_for(int n) { return (n + kBlock - 1) / kBlock; }
 
 extern "C" int sph_density(const int* key, const float* pos,
                            const int* cell_start, const int* cell_end, int n,
+                           const float* ghost_pos, const int* ghost_start,
+                           const int* ghost_end, int has_ghosts,
                            const SphSweepParams* params, float* rho,
                            float* pres, void* stream) {
   if (n > 0) {
     density_kernel<<<grid_for(n), kBlock, 0,
                      static_cast<cudaStream_t>(stream)>>>(
-        key, pos, cell_start, cell_end, n, *params, rho, pres);
+        key, pos, cell_start, cell_end, n, ghost_pos, ghost_start, ghost_end,
+        has_ghosts, *params, rho, pres);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -246,14 +297,16 @@ extern "C" int sph_density(const int* key, const float* pos,
 extern "C" int sph_force_xsph(const int* key, const float* pos,
                               const float* vel, const float* rho,
                               const int* cell_start, const int* cell_end,
-                              int n, const SphSweepParams* params,
+                              int n, const float* ghost_pos,
+                              const int* ghost_start, const int* ghost_end,
+                              int has_ghosts, const SphSweepParams* params,
                               float* npos, float* nvel, float* acc,
                               void* stream) {
   if (n > 0) {
     force_xsph_kernel<<<grid_for(n), kBlock, 0,
                         static_cast<cudaStream_t>(stream)>>>(
-        key, pos, vel, rho, cell_start, cell_end, n, *params, npos, nvel,
-        acc);
+        key, pos, vel, rho, cell_start, cell_end, n, ghost_pos, ghost_start,
+        ghost_end, has_ghosts, *params, npos, nvel, acc);
   }
   return static_cast<int>(cudaGetLastError());
 }

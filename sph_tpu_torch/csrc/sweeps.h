@@ -3,7 +3,10 @@
 // Every pointer is device memory laid out as the port's tensors are:
 // key [n] int32 (ascending cell keys, num_cells for non-fluid rows),
 // pos / vel / npos / nvel / acc [n][3] float32, rho / pres [n] float32,
-// cell_start / cell_end [num_cells] int32.  The launch goes on `stream`
+// cell_start / cell_end [num_cells] int32.  The ghost structure:
+// ghost_pos [g][3] float32 (contributing ghosts sorted by the same key),
+// ghost_start / ghost_end [num_cells] int32; with has_ghosts 0 the three
+// pointers are not read and may be null.  The launch goes on `stream`
 // (a cudaStream_t) and neither function synchronises or allocates.
 // Each returns cudaGetLastError() after its launch: 0 means launched.
 #pragma once
@@ -27,13 +30,17 @@ typedef struct {
 } SphSweepParams;
 
 int sph_density(const int* key, const float* pos, const int* cell_start,
-                const int* cell_end, int n, const SphSweepParams* params,
-                float* rho, float* pres, void* stream);
+                const int* cell_end, int n, const float* ghost_pos,
+                const int* ghost_start, const int* ghost_end, int has_ghosts,
+                const SphSweepParams* params, float* rho, float* pres,
+                void* stream);
 
 int sph_force_xsph(const int* key, const float* pos, const float* vel,
                    const float* rho, const int* cell_start,
-                   const int* cell_end, int n, const SphSweepParams* params,
-                   float* npos, float* nvel, float* acc, void* stream);
+                   const int* cell_end, int n, const float* ghost_pos,
+                   const int* ghost_start, const int* ghost_end,
+                   int has_ghosts, const SphSweepParams* params, float* npos,
+                   float* nvel, float* acc, void* stream);
 
 #ifdef __cplusplus
 }

@@ -24,7 +24,8 @@ from sph_tpu_torch.physics import brute_force, constraints
 def neighbor_aux(state: ParticleState, params: FluidParams, dt,
                  config: SimConfig):
     """Per-run constants of the neighbor engine (the cell engine's sweep
-    params), built once outside the substep loop."""
+    params and static ghost structure), built once outside the substep
+    loop: ghosts never move and face activation is fixed within a run."""
     if config.neighbor_impl == "cell":
         return sweeps.prepare(state, params, dt, config)
     return None
@@ -37,7 +38,7 @@ def sph_solve(state: ParticleState, params: FluidParams, dt,
     if config.neighbor_impl == "brute":
         return brute_force.substep(state, params, dt)
     if config.neighbor_impl == "cell":
-        return sweeps.substep(state, params, dt, config, pv=aux)
+        return sweeps.substep(state, params, dt, config, aux=aux)
     raise ValueError(f"unknown neighbor_impl: {config.neighbor_impl!r}")
 
 

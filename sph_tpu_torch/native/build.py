@@ -4,7 +4,8 @@ Counterpart of ``sph_tpu/native/__init__.py:23-51``, with no fallback:
 a missing ``nvcc`` or a failed build raises.  The library is built at
 first use into ``sph_tpu_torch/_build/``, named by a hash of the sources
 and the flags, so an edited source builds anew and an unchanged one is
-loaded as it is.
+loaded as it is.  The kernel wrappers share its input check and launch
+count (:func:`check_tensor`, :func:`launched`).
 """
 from __future__ import annotations
 
@@ -47,8 +48,7 @@ def _nvcc() -> str:
     if os.path.exists(cand):
         return cand
     raise RuntimeError("nvcc not found (PATH, CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): the sweep kernels cannot be "
-                       "built")
+                       "/usr/local/cuda/bin): the kernels cannot be built")
 
 
 def library_path() -> str:
@@ -84,8 +84,32 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(library_path())
     p, i = ctypes.c_void_p, ctypes.c_int
     prm = ctypes.POINTER(SweepParamsC)
-    lib.sph_density.argtypes = [p, p, p, p, i, prm, p, p, p]
+    lib.sph_cell_table.argtypes = [p, p, p, p, i, i, p, p, p, p, p]
+    lib.sph_cell_table.restype = i
+    lib.sph_density.argtypes = [p, p, p, p, i, p, p, p, i, prm, p, p, p]
     lib.sph_density.restype = i
-    lib.sph_force_xsph.argtypes = [p, p, p, p, p, p, i, prm, p, p, p, p]
+    lib.sph_force_xsph.argtypes = [p, p, p, p, p, p, i, p, p, p, i, prm, p,
+                                   p, p, p]
     lib.sph_force_xsph.restype = i
     return lib
+
+
+def check_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is what a kernel takes: ``device``, ``dtype``,
+    ``shape`` and contiguous."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def launched(counts: dict, name: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error; else count it."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    counts[name] += 1

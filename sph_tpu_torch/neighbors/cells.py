@@ -1,12 +1,15 @@
-"""Cell keys, the stable key sort and per-cell row ranges
-(counterpart of ``sph_tpu/neighbors/planes.py:175-267``).
+"""Cell keys, the stable key sort, the cell table and the ghost structure
+(counterpart of ``sph_tpu/neighbors/planes.py:175-267`` and ``:541-568``).
 
 The reference builds per-cell linked lists (``BuildGrid.comp:34-38``);
 the JAX package sorts by cell key and scatters the sorted rows into
-fixed-capacity dense slot tables for its TPU kernels.  Here the sorted
-rows themselves are the neighbor structure: ``cell_start[c]`` and
-``cell_end[c]`` bound cell ``c``'s rows, so no cell has a capacity and no
-particle can overflow one.
+fixed-capacity dense slot tables for its TPU kernels
+(``mxu_permute._expand_kernel``).  Here the sorted rows themselves are the
+neighbor structure: ``cell_start[c]`` and ``cell_end[c]`` bound cell
+``c``'s rows, so no cell has a capacity and no particle can overflow one.
+:func:`cell_table` builds the sorted pos/vel and those ranges in one CUDA
+kernel (``csrc/cells.cu``) on CUDA tensors, and with ``torch.searchsorted``
+and index gathers (:func:`cell_table_plain`) on CPU tensors.
 
 The key is y-major with x fastest, ``x + nx*(z + nz*y)``, so the three
 cells ``x-1 .. x+1`` at one ``(y, z)`` are one contiguous row range; the
@@ -14,12 +17,23 @@ sweeps walk 9 such ranges instead of 27 cells.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from sph_tpu_torch.core.params import FluidParams, grid_cell_coords
 from sph_tpu_torch.core.state import ParticleState
+from sph_tpu_torch.native import build as native
+
+# Kernel launches since the last reset_launches() — only the CUDA path
+# counts, and only where it launches.
+LAUNCHES = {"cell_table": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def compute_keys_ymajor(pos: torch.Tensor, mask: torch.Tensor,
@@ -32,29 +46,80 @@ def compute_keys_ymajor(pos: torch.Tensor, mask: torch.Tensor,
     return torch.where(mask, key, torch.full_like(key, nx * ny * nz))
 
 
-def sort_particles(state: ParticleState, key: torch.Tensor
-                   ) -> Tuple[ParticleState, torch.Tensor]:
-    """Stable sort by cell key; returns (sorted state, sorted keys).
-
-    Every field moves with its row, so the state stays in sorted order
-    and ``orig_id`` keeps each particle's identity, as the JAX engine's
-    does (``pallas_sweeps.py:1205-1206``)."""
-    skey, order = torch.sort(key, stable=True)
-    fields = {f: getattr(state, f)[order]
-              for f in state.__dataclass_fields__}
-    return ParticleState(**fields), skey
+class CellTable(NamedTuple):
+    pos: torch.Tensor                 # [N,3] sorted
+    vel: Optional[torch.Tensor]       # [N,3] sorted, or None
+    cell_start: torch.Tensor          # [num_cells] i32
+    cell_end: torch.Tensor            # [num_cells] i32
 
 
-def cell_ranges(skey: torch.Tensor, num_cells: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[num_cells] int32 ``cell_start`` / ``cell_end`` of ascending keys.
-
-    Stands in for the JAX package's table expand (``planes.py:331-383``):
-    the sorted rows need no scatter into slots, only their bounds."""
+def cell_table_plain(skey, order, pos, vel, num_cells: int) -> CellTable:
+    """Plain torch version of ``cell_table_kernel``."""
     cells = torch.arange(num_cells, dtype=skey.dtype, device=skey.device)
     start = torch.searchsorted(skey, cells, out_int32=True)
     end = torch.searchsorted(skey, cells, right=True, out_int32=True)
-    return start, end
+    return CellTable(pos[order], None if vel is None else vel[order],
+                     start, end)
+
+
+def cell_table(skey: torch.Tensor, order: torch.Tensor, pos: torch.Tensor,
+               vel: Optional[torch.Tensor], num_cells: int) -> CellTable:
+    """The cell table of rows sorted by key: ``pos[order]`` and
+    ``vel[order]`` (``vel`` may be None), and ``cell_start[c]`` /
+    ``cell_end[c]``, the first row with key >= c and the first with
+    key > c (``torch.searchsorted``'s semantics, so an empty cell has
+    start = end = its insertion point).
+
+    ``skey`` [N] int32 ascending (rows outside the table carry
+    ``num_cells``), ``order`` [N] int64 into the rows of ``pos``/``vel``.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    dev = skey.device
+    if dev.type == "cpu":
+        return cell_table_plain(skey, order, pos, vel, num_cells)
+    if dev.type != "cuda":
+        raise ValueError(f"the cell table takes CUDA or CPU tensors, got {dev}")
+    n, m = skey.shape[0], pos.shape[0]
+    if max(n, m, num_cells) >= 2**31 // 3:
+        raise ValueError("too many rows or cells for the kernel's int32 "
+                         "indexing")
+    native.check_tensor("skey", skey, torch.int32, (n,), dev)
+    native.check_tensor("order", order, torch.int64, (n,), dev)
+    native.check_tensor("pos", pos, torch.float32, (m, 3), dev)
+    if vel is not None:
+        native.check_tensor("vel", vel, torch.float32, (m, 3), dev)
+    spos = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    svel = None if vel is None else torch.empty_like(spos)
+    start = torch.empty(num_cells, dtype=torch.int32, device=dev)
+    end = torch.empty_like(start)
+    err = native.library().sph_cell_table(
+        skey.data_ptr(), order.data_ptr(), pos.data_ptr(),
+        None if vel is None else vel.data_ptr(), n, num_cells,
+        spos.data_ptr(), None if svel is None else svel.data_ptr(),
+        start.data_ptr(), end.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    native.launched(LAUNCHES, "cell_table", err)
+    return CellTable(spos, svel, start, end)
+
+
+def fluid_sort(state: ParticleState, params: FluidParams,
+               dims: Tuple[int, int, int]):
+    """(skey, order) of every row, stable; rows other than fluid take key
+    ``num_cells`` and sort last."""
+    key = compute_keys_ymajor(state.pos, state.fluid_mask(), params, dims)
+    return torch.sort(key, stable=True)
+
+
+def ghost_sort(state: ParticleState, params: FluidParams,
+               dims: Tuple[int, int, int]):
+    """(skey, order) of the contributing ghosts (valid, ghost, face
+    active) only, stable; ``order`` indexes the rows of ``state``."""
+    contrib = state.contrib_mask(params.ghost_face_active)
+    rows = torch.nonzero((state.ghost > 0) & contrib).squeeze(1)
+    key = compute_keys_ymajor(state.pos[rows],
+                              torch.ones_like(rows, dtype=torch.bool),
+                              params, dims)
+    skey, order = torch.sort(key, stable=True)
+    return skey, rows[order]
 
 
 class CellRows(NamedTuple):
@@ -67,10 +132,43 @@ class CellRows(NamedTuple):
 
 def build(state: ParticleState, params: FluidParams,
           dims: Tuple[int, int, int]) -> CellRows:
-    """Keys -> stable sort -> cell ranges.  Only fluid rows get a cell:
-    ghosts and padding take key ``num_cells`` and sort last."""
+    """Keys -> stable sort -> cell table.  Only fluid rows get a cell:
+    ghosts and padding take key ``num_cells`` and sort last.
+
+    Every field moves with its row, so the state stays in sorted order and
+    ``orig_id`` keeps each particle's identity, as the JAX engine's does
+    (``pallas_sweeps.py:1205-1206``).  pos and vel move in the cell table;
+    the other fields are carried by torch gathers."""
     nx, ny, nz = dims
-    key = compute_keys_ymajor(state.pos, state.fluid_mask(), params, dims)
-    s, skey = sort_particles(state, key)
-    start, end = cell_ranges(skey, nx * ny * nz)
-    return CellRows(s, skey, start, end)
+    skey, order = fluid_sort(state, params, dims)
+    tbl = cell_table(skey, order, state.pos, state.vel, nx * ny * nz)
+    fields = {f.name: getattr(state, f.name)[order]
+              for f in dataclasses.fields(state)
+              if f.name not in ("pos", "vel")}
+    s = ParticleState(pos=tbl.pos, vel=tbl.vel, **fields)
+    return CellRows(s, skey, tbl.cell_start, tbl.cell_end)
+
+
+class GhostRows(NamedTuple):
+    """The static ghost sources: contributing ghosts only, sorted by the
+    fluid's cell key (counterpart of ``planes.GhostTables``)."""
+    pos: torch.Tensor          # [G,3] sorted
+    ghost_start: torch.Tensor  # [num_cells] i32
+    ghost_end: torch.Tensor    # [num_cells] i32
+
+    @property
+    def count(self) -> int:
+        return self.pos.shape[0]
+
+
+def build_ghosts(state: ParticleState, params: FluidParams,
+                 dims: Tuple[int, int, int]) -> GhostRows:
+    """The ghost structure (counterpart of ``planes.build_ghost_tables``):
+    the rows that are valid, ghosts and on an active face, with the same
+    y-major key, a stable sort and the same cell table.  Ghosts never move
+    and face activation is fixed within a run, so this is built once per
+    ``run_substeps``."""
+    nx, ny, nz = dims
+    skey, order = ghost_sort(state, params, dims)
+    tbl = cell_table(skey, order, state.pos, None, nx * ny * nz)
+    return GhostRows(tbl.pos, tbl.cell_start, tbl.cell_end)

@@ -12,16 +12,15 @@ Each sweep is a CUDA kernel (``csrc/sweeps.cu``) with a plain torch
 version of the same function beside it.  The wrapper picks by the
 device of its tensors: CPU tensors take the plain version, CUDA tensors
 launch the kernel, anything else raises.  Both read the same inputs: rows
-sorted by cell key and the per-cell row ranges of ``cells.py``.
-
-Ghost boundary sources are not ported yet (ROADMAP queue 1 item 3,
-``ghost_1m``): :func:`prepare` raises on a state that holds ghosts.
+sorted by cell key and the per-cell row ranges of ``cells.py``, and, for a
+state with ghosts, the static ghost structure (``cells.GhostRows``), whose
+sources have rho0, P = 0 and v = 0 (``physics/brute_force.py``).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -29,6 +28,7 @@ from sph_tpu_torch.core.params import FluidParams, SimConfig
 from sph_tpu_torch.core.state import ParticleState
 from sph_tpu_torch.native import build
 from sph_tpu_torch.neighbors import cells
+from sph_tpu_torch.neighbors.cells import GhostRows
 from sph_tpu_torch.physics import common as C
 from sph_tpu_torch.physics.kernels import _PI
 
@@ -132,17 +132,26 @@ def _fluid_chunks(key: torch.Tensor, pv: SweepParams):
         yield rows[c0:c0 + _PLAIN_CHUNK]
 
 
-def density_plain(key, pos, cell_start, cell_end, pv: SweepParams):
+def _density_raw(key, pos, src, starts, ends, pv: SweepParams):
+    """sum over the sources ``src`` of (h^2 - r^2)^3 within h."""
+    idx, mask = _candidates(key, starts, ends, pv)
+    d = pos[:, None, :] - src[idx]
+    r2 = torch.sum(d * d, dim=-1)
+    dd = pv.h2 - r2
+    return torch.sum(torch.where(mask & (r2 < pv.h2), dd * dd * dd, 0.0),
+                     dim=1)
+
+
+def density_plain(key, pos, cell_start, cell_end, pv: SweepParams,
+                  ghosts: Optional[GhostRows] = None):
     """Plain torch version of ``density_kernel``: (rho, pres) [N]."""
     rho = torch.zeros(key.shape[0], dtype=torch.float32, device=key.device)
     pres = torch.zeros_like(rho)
     for r in _fluid_chunks(key, pv):
-        idx, mask = _candidates(key[r], cell_start, cell_end, pv)
-        d = pos[r, None, :] - pos[idx]
-        r2 = torch.sum(d * d, dim=-1)
-        dd = pv.h2 - r2
-        raw = torch.sum(torch.where(mask & (r2 < pv.h2), dd * dd * dd, 0.0),
-                        dim=1)
+        raw = _density_raw(key[r], pos[r], pos, cell_start, cell_end, pv)
+        if ghosts is not None:
+            raw = raw + _density_raw(key[r], pos[r], ghosts.pos,
+                                     ghosts.ghost_start, ghosts.ghost_end, pv)
         rr = torch.clamp_min(pv.mass * pv.poly6 * raw, pv.rho_floor)
         rho[r] = rr
         pres[r] = torch.clamp_min(pv.gas_k * (rr - pv.rho0), 0.0)
@@ -153,25 +162,44 @@ def _norm(v):
     return torch.sqrt(torch.sum(v * v, dim=-1))
 
 
+def _sources(key, r, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
+             ghosts: Optional[GhostRows]):
+    """Candidate sources of the rows ``r``: (pos, vel, rho, pres, mask)
+    [m, k, ...], the fluid rows (self excluded) and then the ghosts (rho0,
+    P = 0, v = 0)."""
+    idx, cand = _candidates(key[r], cell_start, cell_end, pv)
+    cand = cand & (idx != r[:, None])
+    rhoj = rho[idx]
+    out = [(pos[idx], vel[idx], rhoj,
+            torch.clamp_min(pv.gas_k * (rhoj - pv.rho0), 0.0),
+            cand & (rhoj > 0.0))]
+    if ghosts is not None:
+        gidx, gcand = _candidates(key[r], ghosts.ghost_start,
+                                  ghosts.ghost_end, pv)
+        gp = ghosts.pos[gidx]
+        out.append((gp, torch.zeros_like(gp),
+                    torch.full_like(gp[..., 0], pv.rho0),
+                    torch.zeros_like(gp[..., 0]), gcand))
+    return [torch.cat(t, dim=1) for t in zip(*out)]
+
+
 def force_xsph_plain(key, pos, vel, rho, cell_start, cell_end,
-                     pv: SweepParams):
+                     pv: SweepParams, ghosts: Optional[GhostRows] = None):
     """Plain torch version of ``force_xsph_kernel``: (npos, nvel, acc)."""
     npos, nvel = pos.clone(), vel.clone()
     acc = torch.zeros_like(pos)
     g = torch.tensor([pv.gx, pv.gy, pv.gz], dtype=torch.float32,
                      device=pos.device)
     for r in _fluid_chunks(key, pv):
-        idx, cand = _candidates(key[r], cell_start, cell_end, pv)
-        cand = cand & (idx != r[:, None])
-        pj, vj, rhoj = pos[idx], vel[idx], rho[idx]
+        pj, vj, rhoj, presj, src = _sources(key, r, pos, vel, rho,
+                                            cell_start, cell_end, pv, ghosts)
         pi, vi, rhoi = pos[r], vel[r], rho[r]
         presi = torch.clamp_min(pv.gas_k * (rhoi - pv.rho0), 0.0)
-        presj = torch.clamp_min(pv.gas_k * (rhoj - pv.rho0), 0.0)
 
         # pass 1: pressure, viscosity, color field
         rij = pi[:, None, :] - pj
         rr = _norm(rij)
-        live = cand & (rr < pv.h) & (rhoj > 0.0)
+        live = src & (rr < pv.h)
         m_over_rho = torch.where(live, pv.mass / torch.clamp_min(rhoj, 1e-12),
                                  0.0)
         dcl = pv.h - rr
@@ -200,7 +228,7 @@ def force_xsph_plain(key, pos, vel, rho, cell_start, cell_end,
         # pass 2: XSPH, fresh self against stale neighbors
         d = np_[:, None, :] - pj
         r2 = torch.sum(d * d, dim=-1)
-        near = cand & (r2 < pv.h2) & (rhoj > 0.0)
+        near = src & (r2 < pv.h2)
         dd = pv.h2 - r2
         w = torch.where(near, pv.poly6 * dd * dd * dd, 0.0)
         mw = w * pv.mass / torch.clamp_min(rhoj, 1e-12)
@@ -225,20 +253,8 @@ def force_xsph_plain(key, pos, vel, rho, cell_start, cell_end,
 # wrappers: plain version on CPU tensors, the CUDA kernel on CUDA tensors
 # ---------------------------------------------------------------------------
 
-def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape,
-           device: torch.device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
-def _check_rows(key, pos, cell_start, cell_end, pv: SweepParams, **more):
+def _check_rows(key, pos, cell_start, cell_end, pv: SweepParams,
+                ghosts: Optional[GhostRows], **more):
     dev = key.device
     n = key.shape[0]
     if dev.type != "cuda":
@@ -246,29 +262,39 @@ def _check_rows(key, pos, cell_start, cell_end, pv: SweepParams, **more):
                          f"got {dev}")
     if n >= 2**31 // 3:
         raise ValueError(f"{n} rows overflow the kernels' int32 indexing")
-    _check("key", key, torch.int32, (n,), dev)
-    _check("pos", pos, torch.float32, (n, 3), dev)
-    _check("cell_start", cell_start, torch.int32, (pv.num_cells,), dev)
-    _check("cell_end", cell_end, torch.int32, (pv.num_cells,), dev)
+    check = build.check_tensor
+    check("key", key, torch.int32, (n,), dev)
+    check("pos", pos, torch.float32, (n, 3), dev)
+    check("cell_start", cell_start, torch.int32, (pv.num_cells,), dev)
+    check("cell_end", cell_end, torch.int32, (pv.num_cells,), dev)
     for name, (t, shape) in more.items():
-        _check(name, t, torch.float32, shape, dev)
+        check(name, t, torch.float32, shape, dev)
+    if ghosts is not None:
+        check("ghost pos", ghosts.pos, torch.float32, (ghosts.count, 3), dev)
+        check("ghost_start", ghosts.ghost_start, torch.int32,
+              (pv.num_cells,), dev)
+        check("ghost_end", ghosts.ghost_end, torch.int32, (pv.num_cells,),
+              dev)
+
+
+def _ghost_args(ghosts: Optional[GhostRows]):
+    """The kernels' ghost arguments: pos, start, end pointers and the flag."""
+    if ghosts is None:
+        return None, None, None, 0
+    return (ghosts.pos.data_ptr(), ghosts.ghost_start.data_ptr(),
+            ghosts.ghost_end.data_ptr(), 1)
 
 
 def _c_params(pv: SweepParams) -> build.SweepParamsC:
     return build.SweepParamsC(*dataclasses.astuple(pv))
 
 
-def _launched(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-
-
-def density(key, pos, cell_start, cell_end, pv: SweepParams):
+def density(key, pos, cell_start, cell_end, pv: SweepParams,
+            ghosts: Optional[GhostRows] = None):
     """(rho, pres) [N] of the sorted rows; non-fluid rows get 0."""
     if key.device.type == "cpu":
-        return density_plain(key, pos, cell_start, cell_end, pv)
-    _check_rows(key, pos, cell_start, cell_end, pv)
+        return density_plain(key, pos, cell_start, cell_end, pv, ghosts)
+    _check_rows(key, pos, cell_start, cell_end, pv, ghosts)
     lib = build.library()
     n = key.shape[0]
     rho = torch.empty(n, dtype=torch.float32, device=key.device)
@@ -276,19 +302,22 @@ def density(key, pos, cell_start, cell_end, pv: SweepParams):
     prm = _c_params(pv)
     err = lib.sph_density(
         key.data_ptr(), pos.data_ptr(), cell_start.data_ptr(),
-        cell_end.data_ptr(), n, ctypes.byref(prm), rho.data_ptr(),
-        pres.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
-    _launched("density", err)
+        cell_end.data_ptr(), n, *_ghost_args(ghosts), ctypes.byref(prm),
+        rho.data_ptr(), pres.data_ptr(),
+        torch.cuda.current_stream(key.device).cuda_stream)
+    build.launched(LAUNCHES, "density", err)
     return rho, pres
 
 
-def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams):
+def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
+               ghosts: Optional[GhostRows] = None):
     """(npos, nvel, acc) [N,3] of the sorted rows; non-fluid rows pass
     through (npos = pos, nvel = vel, acc = 0)."""
     if key.device.type == "cpu":
-        return force_xsph_plain(key, pos, vel, rho, cell_start, cell_end, pv)
+        return force_xsph_plain(key, pos, vel, rho, cell_start, cell_end, pv,
+                                ghosts)
     n = key.shape[0]
-    _check_rows(key, pos, cell_start, cell_end, pv,
+    _check_rows(key, pos, cell_start, cell_end, pv, ghosts,
                 vel=(vel, (n, 3)), rho=(rho, (n,)))
     lib = build.library()
     npos = torch.empty_like(pos)
@@ -297,10 +326,10 @@ def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams):
     prm = _c_params(pv)
     err = lib.sph_force_xsph(
         key.data_ptr(), pos.data_ptr(), vel.data_ptr(), rho.data_ptr(),
-        cell_start.data_ptr(), cell_end.data_ptr(), n, ctypes.byref(prm),
-        npos.data_ptr(), nvel.data_ptr(), acc.data_ptr(),
+        cell_start.data_ptr(), cell_end.data_ptr(), n, *_ghost_args(ghosts),
+        ctypes.byref(prm), npos.data_ptr(), nvel.data_ptr(), acc.data_ptr(),
         torch.cuda.current_stream(key.device).cuda_stream)
-    _launched("force_xsph", err)
+    build.launched(LAUNCHES, "force_xsph", err)
     return npos, nvel, acc
 
 
@@ -308,39 +337,62 @@ def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams):
 # substep composition
 # ---------------------------------------------------------------------------
 
+class CellAux(NamedTuple):
+    """Per-run constants of the cell engine (the counterpart of
+    ``pallas_sweeps.build_aux``, ``:1180-1195``)."""
+    pv: SweepParams
+    ghosts: Optional[GhostRows]   # None when the state holds no ghosts
+
+
 def prepare(state: ParticleState, params: FluidParams, dt,
-            config: SimConfig) -> SweepParams:
-    """Per-run constants of the cell engine (the counterpart of the JAX
-    engine's ``build_aux``): the sweep params, after checking that the
-    state holds no ghosts, whose sources the kernels do not take yet."""
-    if bool((state.ghost > 0).any()):
-        raise NotImplementedError(
-            "the cell engine takes no ghost particles yet: ghost sources "
-            "come with ROADMAP queue 1 item 3 (ghost_1m)")
-    return make_pvec(params, dt, config.grid_dims)
+            config: SimConfig) -> CellAux:
+    """The sweep params and, for a state with ghosts, the static ghost
+    structure.  Ghosts never move and face activation is fixed within a
+    run, so ``engine.run_substeps`` builds this once, before its loop."""
+    pv = make_pvec(params, dt, config.grid_dims)
+    if not bool((state.ghost > 0).any()):
+        return CellAux(pv, None)
+    return CellAux(pv, cells.build_ghosts(state, params, config.grid_dims))
 
 
 def reassemble(s: ParticleState, rho, pres, npos, nvel, acc,
-               params: FluidParams) -> ParticleState:
+               params: FluidParams, ghosts: bool = False) -> ParticleState:
     """Sweep outputs -> the sorted particle state, with foam.  The sweeps
     already pass non-fluid rows through (pos, vel kept; acc, rho, pres
-    zero), so only foam needs the fluid mask."""
+    zero), so only foam needs the fluid mask, and ghost rows follow the
+    oracle (``brute_force.substep``, ``common.finish_density``) when
+    ``ghosts``: a contributing ghost gets rho0, P = 0, v = 0 and acc = 0,
+    a ghost on an inactive face keeps its old values."""
     foam = torch.where(s.fluid_mask(),
                        C.foam_update(s.foam, nvel, rho, params), s.foam)
+    if ghosts:
+        g = s.ghost > 0
+        on = g & s.contrib_mask(params.ghost_face_active)
+        off = g & ~on
+        rho = torch.where(on, params.rest_density,
+                          torch.where(off, s.density, rho))
+        pres = torch.where(g, torch.where(on, 0.0, s.pressure), pres)
+        nvel = torch.where(on[:, None], 0.0,
+                           torch.where(off[:, None], s.vel, nvel))
+        acc = torch.where(on[:, None], 0.0,
+                          torch.where(off[:, None], s.acc, acc))
     return s.replace(pos=npos, vel=nvel, acc=acc, density=rho,
                      pressure=pres, foam=foam)
 
 
 def substep(state: ParticleState, params: FluidParams, dt,
-            config: SimConfig, pv: SweepParams | None = None
+            config: SimConfig, aux: Optional[CellAux] = None
             ) -> ParticleState:
     """One cell-engine substep.  Returns the state in SORTED order
     (identity lives in ``orig_id``), as the JAX engine does."""
-    if pv is None:
-        pv = prepare(state, params, dt, config)
+    if aux is None:
+        aux = prepare(state, params, dt, config)
+    pv, ghosts = aux
     rows = cells.build(state, params, config.grid_dims)
     s = rows.state
-    rho, pres = density(rows.key, s.pos, rows.cell_start, rows.cell_end, pv)
+    rho, pres = density(rows.key, s.pos, rows.cell_start, rows.cell_end, pv,
+                        ghosts)
     npos, nvel, acc = force_xsph(rows.key, s.pos, s.vel, rho,
-                                 rows.cell_start, rows.cell_end, pv)
-    return reassemble(s, rho, pres, npos, nvel, acc, params)
+                                 rows.cell_start, rows.cell_end, pv, ghosts)
+    return reassemble(s, rho, pres, npos, nvel, acc, params,
+                      ghosts=ghosts is not None)

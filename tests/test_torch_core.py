@@ -53,6 +53,15 @@ def test_spawn_bit_identical_default_131k():
     assert_spawn_equal(t, JS.spawn_standard(131072, **kw))
 
 
+@pytest.mark.parametrize("half", [(3.0, 3.0, 3.0), (18.5, 18.5, 18.5)])
+def test_ghost_shell_bit_identical(half):
+    t = TS.spawn_ghost_box_shell(h=0.28, box_half=half)
+    assert_spawn_equal(t, JS.spawn_ghost_box_shell(h=0.28, box_half=half))
+    assert t.count == {3.0: 4374, 18.5: 147894}[half[0]]
+    assert np.all(t.ghost == 1)
+    np.testing.assert_array_equal(np.bincount(t.face), [t.count // 6] * 6)
+
+
 def test_state_from_spawn_matches():
     spawn = TS.concat_spawns(TS.spawn_standard(700, seed=3),
                              TS.spawn_standard(300, seed=4))

@@ -3,8 +3,10 @@
 CPU: the plain versions against the JAX package's all-pairs oracle
 (``brute_force.density_pass`` + ``finish_density``; ``force_pass`` +
 ``assemble_acc`` + ``integrate`` + ``xsph_pass`` + ``apply_xsph`` +
-``speed_cap``) on the 2k dam break and on a crowded block whose cells hold
-more than 8 particles, which the capacity-free port must handle exactly.
+``speed_cap``) on the 2k dam break, on a crowded block whose cells hold
+more than 8 particles, which the capacity-free port must handle exactly,
+and on a ghost-shell box with all faces on and with the top face off,
+where the sweeps take the ghost structure as sources.
 
 CUDA (marker ``cuda``, skipped without a card): each kernel against its
 plain version.  JAX is imported inside the fixtures that need it, so the
@@ -31,10 +33,13 @@ VEL_ATOL = 1e-3
 ACC_RTOL, ACC_ATOL = 1e-4, 1e-1       # |acc| is about |g| = 980
 
 
+ALL_FACES = (1, 1, 1, 1, 1, 1)
+
+
 def dam_break_case():
     """The 2k dam break of tests/conftest.py, spawned by the port."""
     half = (7.0, 7.0, 7.0)
-    return TS.spawn_standard(2048, seed=7), half, 0.28
+    return TS.spawn_standard(2048, seed=7), half, 0.28, ALL_FACES
 
 
 def crowded_case():
@@ -56,20 +61,36 @@ def crowded_case():
     return TS.SpawnResult(
         pos=pos, vel=np.zeros((n, 3), np.float32),
         ghost=np.zeros((n,), np.int32), face=np.full((n,), -1, np.int32),
-        color_group=np.zeros((n,), np.int32), count=n), half, h
+        color_group=np.zeros((n,), np.int32), count=n), half, h, ALL_FACES
 
 
-CASES = {"dam_break": dam_break_case, "crowded": crowded_case}
+def ghost_shell_case(active=ALL_FACES):
+    """512 fluid particles in a box of half 3 inside the ghost shell, as
+    tests/test_pallas_engine.py:46-69, moved into the -X, -Y, -Z corner
+    so that the walls' ghosts are within h of the fluid from the start."""
+    half = (3.0, 3.0, 3.0)
+    fluid = TS.spawn_standard(512, h=0.28, box_half=half, seed=1)
+    fluid.pos += np.asarray([-0.35, -0.2, -0.35], np.float32)
+    spawn = TS.concat_spawns(
+        fluid, TS.spawn_ghost_box_shell(h=0.28, box_half=half))
+    return spawn, half, 0.28, active
+
+
+CASES = {"dam_break": dam_break_case, "crowded": crowded_case,
+         "ghost_shell": ghost_shell_case,
+         # +Y (face 3) open: its ghosts are not sources
+         "ghost_shell_open_top": lambda: ghost_shell_case((1, 1, 1, 0, 1, 1))}
 
 
 def port_inputs(case, device="cpu", warm=2):
     """(state, params, dims) after ``warm`` plain cell substeps on the
     CPU, moved to ``device``."""
     from sph_tpu_torch.engine.step import run_substeps
-    spawn, half, h = CASES[case]()
+    spawn, half, h, active = CASES[case]()
     state = TS.state_from_spawn(spawn)
     params = TP.FluidParams.default(
-        h=h, box_half=np.asarray(half, np.float32)).derive_mass()
+        h=h, box_half=np.asarray(half, np.float32),
+        ghost_face_active=active).derive_mass()
     dims = TP.compute_grid_dims(TP.SHAPE_BOX, half, (0, 0, 0), h)
     state = run_substeps(state, params, params.dt, warm,
                          SimConfig(n=state.n, grid_dims=dims))
@@ -82,10 +103,14 @@ def port_inputs(case, device="cpu", warm=2):
 
 
 def sweep_inputs(state, params, dims):
+    """(key, pos, vel, cell_start, cell_end), the sorted state, the sweep
+    params and the ghost structure (None without ghosts)."""
     rows = cells.build(state, params, dims)
-    pv = sweeps.make_pvec(params, params.dt, dims)
+    pv, ghosts = sweeps.prepare(state, params, params.dt,
+                                SimConfig(n=state.n, grid_dims=dims))
     s = rows.state
-    return (rows.key, s.pos, s.vel, rows.cell_start, rows.cell_end), s, pv
+    return ((rows.key, s.pos, s.vel, rows.cell_start, rows.cell_end), s, pv,
+            ghosts)
 
 
 # ---------------------------------------------------------------------------
@@ -107,8 +132,9 @@ def oracle():
         state, params, dims = port_inputs(case)
         js = JPS(**{f.name: jnp.asarray(getattr(state, f.name).numpy())
                     for f in dataclasses.fields(state)})
-        jp = JFP.default(h=float(params.h),
-                         box_half=params.box_half.numpy()).derive_mass()
+        jp = JFP.default(
+            h=float(params.h), box_half=params.box_half.numpy(),
+            ghost_face_active=params.ghost_face_active.numpy()).derive_mass()
         ids = jnp.arange(js.n, dtype=jnp.int32)
         cj = js.contrib_mask(jp.ghost_face_active)
         rho_raw = JBF.density_pass(js.pos, js.pos, cj, jp)
@@ -137,8 +163,9 @@ def _fluid_rows(s):
 @pytest.mark.parametrize("case", list(CASES))
 def test_density_plain_matches_oracle(oracle, case):
     state, params, dims, want = oracle[case]
-    (key, pos, _, cs, ce), s, pv = sweep_inputs(state, params, dims)
-    rho, pres = sweeps.density(key, pos, cs, ce, pv)
+    (key, pos, _, cs, ce), s, pv, ghosts = sweep_inputs(state, params, dims)
+    assert (ghosts is not None) == case.startswith("ghost")
+    rho, pres = sweeps.density(key, pos, cs, ce, pv, ghosts)
     m, oid = _fluid_rows(s)
     np.testing.assert_allclose(rho.numpy()[m], want["rho"][oid],
                                rtol=RHO_RTOL, atol=RHO_ATOL)
@@ -150,12 +177,14 @@ def test_density_plain_matches_oracle(oracle, case):
 @pytest.mark.parametrize("case", list(CASES))
 def test_force_xsph_plain_matches_oracle(oracle, case):
     state, params, dims, want = oracle[case]
-    (key, pos, vel, cs, ce), s, pv = sweep_inputs(state, params, dims)
+    (key, pos, vel, cs, ce), s, pv, ghosts = sweep_inputs(state, params,
+                                                          dims)
     # the oracle's densities, in sorted order, isolate this sweep
     m, oid = _fluid_rows(s)
     rho = torch.zeros(s.n)
     rho[torch.as_tensor(m)] = torch.as_tensor(want["rho"][oid])
-    npos, nvel, acc = sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv)
+    npos, nvel, acc = sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv,
+                                        ghosts)
     np.testing.assert_allclose(npos.numpy()[m], want["npos"][oid], rtol=0,
                                atol=POS_ATOL)
     np.testing.assert_allclose(nvel.numpy()[m], want["nvel"][oid], rtol=0,
@@ -176,7 +205,7 @@ def test_crowded_case_exceeds_capacity():
 
 def test_wrappers_on_cpu_take_plain_path_without_counting():
     state, params, dims = port_inputs("dam_break", warm=0)
-    (key, pos, vel, cs, ce), _, pv = sweep_inputs(state, params, dims)
+    (key, pos, vel, cs, ce), _, pv, _ = sweep_inputs(state, params, dims)
     sweeps.reset_launches()
     rho, _ = sweeps.density(key, pos, cs, ce, pv)
     ref = sweeps.density_plain(key, pos, cs, ce, pv)[0]
@@ -187,7 +216,7 @@ def test_wrappers_on_cpu_take_plain_path_without_counting():
 
 def test_wrappers_reject_other_devices():
     state, params, dims = port_inputs("dam_break", warm=0)
-    (key, pos, vel, cs, ce), _, pv = sweep_inputs(state, params, dims)
+    (key, pos, vel, cs, ce), _, pv, _ = sweep_inputs(state, params, dims)
     meta = [t.to("meta") for t in (key, pos, vel, cs, ce)]
     with pytest.raises(ValueError, match="CUDA or CPU"):
         sweeps.density(meta[0], meta[1], meta[3], meta[4], pv)
@@ -196,20 +225,17 @@ def test_wrappers_reject_other_devices():
                           meta[3], meta[4], pv)
 
 
-def test_cell_engine_raises_on_ghosts():
-    from sph_tpu_torch.engine.step import run_substeps
-    spawn, half, h = dam_break_case()
-    shell = TS.SpawnResult(
-        pos=np.zeros((4, 3), np.float32), vel=np.zeros((4, 3), np.float32),
-        ghost=np.ones((4,), np.int32), face=np.zeros((4,), np.int32),
-        color_group=np.zeros((4,), np.int32), count=4)
-    state = TS.state_from_spawn(TS.concat_spawns(spawn, shell))
-    params = TP.FluidParams.default().derive_mass()
-    cfg = SimConfig(n=state.n, grid_dims=(56, 56, 56))
-    with pytest.raises(NotImplementedError, match="ghost"):
-        sweeps.substep(state, params, params.dt, cfg)
-    with pytest.raises(NotImplementedError, match="ghost"):
-        run_substeps(state, params, params.dt, 1, cfg)
+def test_ghost_sources_reach_the_sweeps():
+    """The ghost cases' wall rows see the shell: without the ghost
+    structure the same sweeps give them less density."""
+    state, params, dims = port_inputs("ghost_shell", warm=0)
+    (key, pos, _, cs, ce), s, pv, ghosts = sweep_inputs(state, params, dims)
+    assert ghosts.count == 4374
+    with_g = sweeps.density(key, pos, cs, ce, pv, ghosts)[0]
+    without = sweeps.density(key, pos, cs, ce, pv)[0]
+    m = s.fluid_mask()
+    assert bool((with_g[m] >= without[m]).all())
+    assert int((with_g[m] > without[m] + 1.0).sum()) > 100
 
 
 # ---------------------------------------------------------------------------
@@ -228,15 +254,15 @@ def cuda():
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernels_match_plain_on_cuda(cuda, case):
     state, params, dims = port_inputs(case, device=cuda)
-    (key, pos, vel, cs, ce), _, pv = sweep_inputs(state, params, dims)
+    (key, pos, vel, cs, ce), _, pv, g = sweep_inputs(state, params, dims)
     sweeps.reset_launches()
-    rho_k, pres_k = sweeps.density(key, pos, cs, ce, pv)
-    rho_p, pres_p = sweeps.density_plain(key, pos, cs, ce, pv)
+    rho_k, pres_k = sweeps.density(key, pos, cs, ce, pv, g)
+    rho_p, pres_p = sweeps.density_plain(key, pos, cs, ce, pv, g)
     torch.testing.assert_close(rho_k, rho_p, rtol=RHO_RTOL, atol=RHO_ATOL)
     torch.testing.assert_close(pres_k, pres_p, rtol=1e-4,
                                atol=RHO_ATOL * pv.gas_k)
-    got = sweeps.force_xsph(key, pos, vel, rho_p, cs, ce, pv)
-    want = sweeps.force_xsph_plain(key, pos, vel, rho_p, cs, ce, pv)
+    got = sweeps.force_xsph(key, pos, vel, rho_p, cs, ce, pv, g)
+    want = sweeps.force_xsph_plain(key, pos, vel, rho_p, cs, ce, pv, g)
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=POS_ATOL)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=VEL_ATOL)
@@ -247,7 +273,7 @@ def test_kernels_match_plain_on_cuda(cuda, case):
 @pytest.mark.cuda
 def test_kernel_wrappers_check_inputs_on_cuda(cuda):
     state, params, dims = port_inputs("dam_break", device=cuda, warm=0)
-    (key, pos, vel, cs, ce), _, pv = sweep_inputs(state, params, dims)
+    (key, pos, vel, cs, ce), _, pv, _ = sweep_inputs(state, params, dims)
     with pytest.raises(ValueError, match="dtype"):
         sweeps.density(key.long(), pos, cs, ce, pv)
     with pytest.raises(ValueError, match="contiguous"):
