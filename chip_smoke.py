@@ -9,23 +9,29 @@ prints no result line):
 1. device  — requires CUDA, prints the card's name and power limit;
 2. build   — builds the kernels from ``sph_tpu_torch/csrc`` with nvcc;
 3. kernels — on the full ``default_131k`` and ``ghost_1m`` states (after
-             one plain substep), each kernel against its plain torch
-             version on the same inputs: the cell table bit-equal (fluid,
-             and ghosts at ``ghost_1m``), the sweeps with ghost sources at
-             ``ghost_1m``; each timed with CUDA events beside its plain
-             version;
-4. small   — the cell engine (kernels) against the all-pairs oracle over 20
-             substeps of a 2k dam break and of a 512-particle box inside
-             a ghost shell, realigned by ``orig_id``;
-5. main    — ``configs.build`` then ``run_substeps`` for ``default_131k``
-             and then ``ghost_1m``: 16 warm-up and 48 timed substeps each,
-             with every kernel's launch count, the physical invariants, the
+             one plain substep), each cell-engine kernel against its plain
+             torch version on the same inputs: the cell table bit-equal
+             (fluid, and ghosts at ``ghost_1m``), the sweeps with ghost
+             sources at ``ghost_1m``; on the full ``dam_break_8k`` state
+             (after one plain all-pairs substep), the two all-pairs
+             kernels; each timed with CUDA events beside its plain
+             version, with its bound (the least time the card could take
+             for the same work) and the share of it that it reaches;
+4. small   — the cell engine (kernels) and the all-pairs engine (kernels)
+             against the all-pairs oracle over 20 substeps of a 2k dam
+             break and of a 512-particle box inside a ghost shell (the
+             cell engine realigned by ``orig_id``, the all-pairs engine in
+             place);
+5. main    — ``configs.build`` with no device (the card is the default)
+             then ``run_substeps`` for ``default_131k``, ``ghost_1m`` and
+             ``dam_break_8k``: 16 warm-up and 48 timed substeps each, with
+             every kernel's launch count, the physical invariants, the
              ghosts' invariants and the fluid density against the JAX
              reference checked.
 
-The last lines are the kernels' JSON record (numbers of ``ghost_1m``, the
-path this script drives last), the ``nvidia-smi`` name and power limit,
-and ``{"ok": true, "device": {...}}``.
+The last lines are the kernels' JSON record (each kernel with the
+configuration whose launches and times it reports), the ``nvidia-smi``
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -44,9 +50,12 @@ TIMED_SUBSTEPS = 48          # 3 frames of the reference's 16-substep cap
 # reference ran with cell_capacity 16: its bottom cells hold up to 15 fluid
 # rows by substep 64, and binned's configured capacity of 8 would drop the
 # rows past it to a gravity-only update (ROADMAP R8).
+# dam_break_8k: sph_tpu "brute" (the all-pairs oracle), seed 0, printed by
+# ``PYTHONPATH=. python tests/test_torch_brute.py dam_break_8k 64``.
 REF_RHO = {
     "default_131k": (6426.8286, 1848.3309),
     "ghost_1m": (6451.4487, 1522.0352),
+    "dam_break_8k": (4864.46240234375, 1669.9207237884402),
 }
 CONFIGS = tuple(REF_RHO)     # the main paths, in the order they are driven
 
@@ -56,15 +65,35 @@ POS_ATOL = 1e-5
 VEL_ATOL = 1e-3
 ACC_RTOL, ACC_ATOL = 1e-4, 1e-1     # |acc| is about |g| = 980
 
-# kernel -> (source, the TPU kernel it replaces)
+# kernel -> (source, the TPU kernel it replaces, the configuration whose
+# launches and times the JSON record reports)
 KERNELS = {
     "cell_table": ("sph_tpu_torch/csrc/cells.cu",
-                   "sph_tpu/neighbors/mxu_permute.py:145"),
+                   "sph_tpu/neighbors/mxu_permute.py:145", "ghost_1m"),
     "density": ("sph_tpu_torch/csrc/sweeps.cu",
-                "sph_tpu/neighbors/pallas_sweeps.py:325"),
+                "sph_tpu/neighbors/pallas_sweeps.py:325", "ghost_1m"),
     "force_xsph": ("sph_tpu_torch/csrc/sweeps.cu",
-                   "sph_tpu/neighbors/pallas_sweeps.py:474"),
+                   "sph_tpu/neighbors/pallas_sweeps.py:474", "ghost_1m"),
+    "brute_density": ("sph_tpu_torch/csrc/brute.cu",
+                      "sph_tpu/physics/brute_pallas.py:63", "dam_break_8k"),
+    "brute_force": ("sph_tpu_torch/csrc/brute.cu",
+                    "sph_tpu/physics/brute_pallas.py:82", "dam_break_8k"),
 }
+
+# The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
+# float32 outside the tensor cores, and HBM3.
+PEAK_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# float32 operations per pair, counted from the kernels' source
+# (csrc/sweeps.cu, csrc/brute.cu): the distance test that every tested
+# pair pays (3 sub, 3 mul, 2 add, 1 compare), and the pair math of a pair
+# within h (density: h2 - r2, d*d*d, the contrib weight, the add;
+# force: rsqrt, r, the r < h test, m/rho, the spiky and viscosity terms
+# and the three accumulators; XSPH: poly6, m/rho, the sum and the norm).
+OPS_TEST = 9
+OPS_DENSITY_NEAR = 5
+OPS_FORCE_NEAR = 41
+OPS_XSPH_NEAR = 17
 
 
 def log(msg: str) -> None:
@@ -113,13 +142,81 @@ def time_ms(fn, reps: int) -> float:
 
 def reset_launches() -> None:
     from sph_tpu_torch.neighbors import cells, sweeps
+    from sph_tpu_torch.physics import brute_kernels
     cells.reset_launches()
     sweeps.reset_launches()
+    brute_kernels.reset_launches()
 
 
 def launches() -> dict:
     from sph_tpu_torch.neighbors import cells, sweeps
-    return {**cells.LAUNCHES, **sweeps.LAUNCHES}
+    from sph_tpu_torch.physics import brute_kernels
+    return {**cells.LAUNCHES, **sweeps.LAUNCHES, **brute_kernels.LAUNCHES}
+
+
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over the float32 rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def cell_pairs(key, pos, npos, cs, ce, pv, ghosts):
+    """Pair counts of the cell sweeps on these inputs: the candidates that
+    the fluid rows test (the 9 ranges, fluid and ghost), those within h of
+    the row (density, self included), those within h and not the row
+    (force), and those within h of the row's fresh position and not the
+    row (XSPH)."""
+    import torch
+    from sph_tpu_torch.neighbors import sweeps
+    out = [0, 0, 0, 0]
+    srcs = [(pos, cs, ce, True)]
+    if ghosts is not None:
+        srcs.append((ghosts.pos, ghosts.ghost_start, ghosts.ghost_end, False))
+    for r in sweeps._fluid_chunks(key, pv):
+        for spos, starts, ends, fluid in srcs:
+            idx, m = sweeps._candidates(key[r], starts, ends, pv)
+            r2 = torch.sum((pos[r][:, None, :] - spos[idx]) ** 2, dim=-1)
+            rr2 = torch.sum((npos[r][:, None, :] - spos[idx]) ** 2, dim=-1)
+            other = m & (idx != r[:, None]) if fluid else m
+            out[0] += int(m.sum())
+            out[1] += int((m & (r2 < pv.h2)).sum())
+            out[2] += int((other & (r2 < pv.h2)).sum())
+            out[3] += int((other & (rr2 < pv.h2)).sum())
+    return out
+
+
+def brute_pairs(pos, npos, rho, contrib, pv):
+    """Pair counts of the all-pairs kernels on these inputs: the pairs
+    tested per pass (n^2), those within h with a contributing source
+    (density, self included), those within h with a live source other than
+    the row (force), and the same from the row's fresh position (XSPH)."""
+    import torch
+    n = pos.shape[0]
+    live = (rho > 0) & (contrib > 0)
+    rows = torch.arange(n, device=pos.device)
+    out = [n * n, 0, 0, 0]
+    for i0 in range(0, n, 1024):
+        sl = slice(i0, min(n, i0 + 1024))
+        r2 = torch.sum((pos[sl, None, :] - pos[None]) ** 2, dim=-1)
+        rr2 = torch.sum((npos[sl, None, :] - pos[None]) ** 2, dim=-1)
+        src = live[None, :] & (rows[sl, None] != rows[None, :])
+        out[1] += int(((r2 < pv.h2) & (contrib[None, :] > 0)).sum())
+        out[2] += int((src & (r2 < pv.h2)).sum())
+        out[3] += int((src & (rr2 < pv.h2)).sum())
+    return out
+
+
+def report(config, name, k_ms, p_ms, nbytes, ops, rows):
+    """Log a kernel's times and bound; return its record fields."""
+    b_ms, by = bound(nbytes, ops)
+    log(f"{config} {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms "
+        f"({rows} rows); bound {b_ms!r} ms by {by} ({nbytes} bytes, "
+        f"{ops} operations), share of bound reached {b_ms / k_ms!r}")
+    return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None}
 
 
 def check_table(name, got, want) -> None:
@@ -188,6 +285,25 @@ def phase_kernels(dev, config):
         f"acc {err_acc!r}")
 
     skey, order = fluid
+    n, nc8 = int(key.shape[0]), 8 * nc
+    gbytes = 0 if ghosts is None else 12 * ghosts.count + nc8
+    cand, near_d, near_f, near_x = cell_pairs(key, pos, fp[0], cs, ce, pv,
+                                              ghosts)
+    log(f"{config} cell sweeps: {cand} candidates tested by the fluid rows, "
+        f"{near_d} within h (density), {near_f} (force), {near_x} (XSPH)")
+    # bytes: each input read once, each output written once
+    work = {
+        # skey, order, pos, vel in; spos, svel, cell_start, cell_end out
+        "cell_table": ((4 + 8 + 12 + 12) * n + 24 * n + nc8, 0),
+        # key, pos, cell_start, cell_end (+ ghosts) in; rho, pres out;
+        # no contrib weight in the pair math
+        "density": (16 * n + nc8 + gbytes + 8 * n,
+                    OPS_TEST * cand + (OPS_DENSITY_NEAR - 1) * near_d),
+        # key, pos, vel, rho, ranges (+ ghosts) in; npos, nvel, acc out
+        "force_xsph": (32 * n + nc8 + gbytes + 36 * n,
+                       2 * OPS_TEST * cand + OPS_FORCE_NEAR * near_f
+                       + OPS_XSPH_NEAR * near_x),
+    }
     times = {
         "cell_table": (
             time_ms(lambda: cells.cell_table(skey, order, state.pos,
@@ -204,12 +320,74 @@ def phase_kernels(dev, config):
             time_ms(lambda: sweeps.force_xsph_plain(key, pos, vel, rho_p, cs,
                                                     ce, pv, ghosts), 5)),
     }
-    for name, (k_ms, p_ms) in times.items():
-        log(f"{config} {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms "
-            f"({int(key.shape[0])} rows)")
     errs = {"cell_table": 0.0, "density": err_rho,
             "force_xsph": max(err_pos, err_vel, err_acc)}
-    return errs, times
+    return {name: {"max_abs_err": errs[name],
+                   **report(config, name, *times[name], *work[name], n)}
+            for name in times}
+
+
+def phase_kernels_brute(dev, config):
+    """The two all-pairs kernels against their plain versions at full
+    ``config``, after one plain all-pairs substep."""
+    import torch
+    from sph_tpu_torch.app import configs
+    from sph_tpu_torch.neighbors.sweeps import make_pvec
+    from sph_tpu_torch.physics import brute_force, constraints
+    from sph_tpu_torch.physics import brute_kernels as BK
+    from sph_tpu_torch.physics import common as C
+
+    state, params, _ = configs.build(config, device=dev)
+    state = constraints.apply_container(
+        brute_force.substep(state, params, params.dt), params)
+    pv = make_pvec(params, params.dt, (0, 0, 0))
+    contrib = state.contrib_mask(params.ghost_face_active)
+    cf = contrib.to(torch.float32)
+    pos, vel, n = state.pos, state.vel, state.n
+
+    raw_p = BK.density_raw_plain(pos, cf, pv)
+    raw_k = BK.density_raw(pos, cf, pv)
+    torch.cuda.synchronize()
+    err_rho = check_close("brute_density rho_raw", raw_k, raw_p, RHO_RTOL,
+                          RHO_ATOL)
+    log(f"{config} brute_density: max|rho_raw err| {err_rho!r}, rho_raw "
+        f"range [{float(raw_p.min())!r}, {float(raw_p.max())!r}]")
+
+    rho, pres = C.finish_density(raw_p, state.ghost, contrib, state.density,
+                                 state.pressure, params)
+    fp = BK.force_plain(pos, vel, rho, pres, cf, pv)
+    fk = BK.force(pos, vel, rho, pres, cf, pv)
+    torch.cuda.synchronize()
+    err_pos = check_close("brute_force npos", fk[0], fp[0], 0.0, POS_ATOL)
+    err_vel = check_close("brute_force nvel", fk[1], fp[1], 0.0, VEL_ATOL)
+    err_acc = check_close("brute_force acc", fk[2], fp[2], ACC_RTOL, ACC_ATOL)
+    log(f"{config} brute_force: max abs err pos {err_pos!r} vel {err_vel!r} "
+        f"acc {err_acc!r}")
+
+    tested, near_d, near_f, near_x = brute_pairs(pos, fp[0], rho, cf, pv)
+    log(f"{config} all pairs: {tested} pairs tested per pass, {near_d} "
+        f"within h (density), {near_f} (force), {near_x} (XSPH)")
+    work = {
+        # pos, contrib in; rho_raw out
+        "brute_density": (20 * n, OPS_TEST * tested
+                          + OPS_DENSITY_NEAR * near_d),
+        # pos, vel, rho, pres, contrib in; npos, nvel, acc out
+        "brute_force": (36 * n + 36 * n, 2 * OPS_TEST * tested
+                        + OPS_FORCE_NEAR * near_f + OPS_XSPH_NEAR * near_x),
+    }
+    times = {
+        "brute_density": (
+            time_ms(lambda: BK.density_raw(pos, cf, pv), 50),
+            time_ms(lambda: BK.density_raw_plain(pos, cf, pv), 5)),
+        "brute_force": (
+            time_ms(lambda: BK.force(pos, vel, rho, pres, cf, pv), 50),
+            time_ms(lambda: BK.force_plain(pos, vel, rho, pres, cf, pv), 5)),
+    }
+    errs = {"brute_density": err_rho,
+            "brute_force": max(err_pos, err_vel, err_acc)}
+    return {name: {"max_abs_err": errs[name],
+                   **report(config, name, *times[name], *work[name], n)}
+            for name in times}
 
 
 def ghost_shell_fixture(dev):
@@ -245,8 +423,10 @@ def check_ghosts(name, start, end, rho0) -> None:
 
 
 def phase_small(dev):
-    """Cell engine (kernels) vs the all-pairs oracle over 20 substeps: a
-    2k dam break, and a box inside a ghost shell."""
+    """The cell engine and the all-pairs engine (kernels) vs the all-pairs
+    oracle over 20 substeps: a 2k dam break, and a box inside a ghost
+    shell.  The cell engine sorts, so its rows are realigned by orig_id;
+    the all-pairs engine keeps rows in place."""
     import numpy as np
     import torch
     from sph_tpu_torch.core import state as S
@@ -263,27 +443,36 @@ def phase_small(dev):
         outs = {impl: run_substeps(state, params, params.dt, 20,
                                    SimConfig(n=state.n, grid_dims=dims,
                                              neighbor_impl=impl))
-                for impl in ("brute", "cell")}
-        ref, got = outs["brute"], outs["cell"]
-        order = torch.argsort(got.orig_id)
+                for impl in ("brute", "cell", "brute_kernel")}
+        ref = outs["brute"]
         v = ref.fluid_mask()
-        errs = {f: max_err(getattr(got, f)[order][v], getattr(ref, f)[v])
-                for f in ("pos", "vel", "density")}
-        log(f"{name}, cell kernels vs oracle over 20 substeps: {errs}")
-        for f, lim in (("pos", 1e-4), ("vel", 1e-3), ("density", 1.0)):
-            if not errs[f] < lim:
-                raise AssertionError(f"{name} {f} err {errs[f]} >= {lim}")
-        check_ghosts(name, state, got, float(params.rest_density))
+        for impl in ("cell", "brute_kernel"):
+            got = outs[impl]
+            order = (torch.argsort(got.orig_id) if impl == "cell"
+                     else torch.arange(got.n, device=dev))
+            errs = {f: max_err(getattr(got, f)[order][v], getattr(ref, f)[v])
+                    for f in ("pos", "vel", "density")}
+            log(f"{name}, {impl} kernels vs oracle over 20 substeps: {errs}")
+            for f, lim in (("pos", 1e-4), ("vel", 1e-3), ("density", 1.0)):
+                if not errs[f] < lim:
+                    raise AssertionError(f"{name} {impl} {f} err {errs[f]} "
+                                         f">= {lim}")
+            check_ghosts(f"{name} {impl}", state, got,
+                         float(params.rest_density))
 
 
 def phase_main(dev, config):
-    """The port's main path: configs.build + run_substeps at ``config``."""
+    """The port's main path: configs.build with no device (the card is
+    the default) + run_substeps at ``config``."""
     import torch
     from sph_tpu_torch.app import configs
     from sph_tpu_torch.core.params import rotation_matrix
     from sph_tpu_torch.engine.step import run_substeps
 
-    start, params, cfg = configs.build(config, device=dev)
+    start, params, cfg = configs.build(config)
+    if start.pos.device != dev or params.h.device != dev:
+        raise AssertionError(f"{config}: configs.build put the state on "
+                             f"{start.pos.device}, not on {dev}")
     state = start
     n_fluid = int(state.fluid_mask().sum())
     n_ghost = int((state.ghost > 0).sum())
@@ -300,9 +489,13 @@ def phase_main(dev, config):
     counts = launches()
 
     total = WARMUP_SUBSTEPS + TIMED_SUBSTEPS
-    # the ghost structure is one more cell table per run_substeps call
-    expect = {"density": total, "force_xsph": total,
-              "cell_table": total + (2 if n_ghost else 0)}
+    expect = dict.fromkeys(KERNELS, 0)
+    if cfg.neighbor_impl == "cell":
+        # the ghost structure is one more cell table per run_substeps call
+        expect.update(density=total, force_xsph=total,
+                      cell_table=total + (2 if n_ghost else 0))
+    else:
+        expect.update(brute_density=total, brute_force=total)
     if counts != expect:
         raise AssertionError(f"{config}: launches {counts} in {total} "
                              f"substeps, expected {expect}")
@@ -361,26 +554,29 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build.library()
     log(f"build: {time.perf_counter() - t0!r} s")
 
-    errs = {}
+    from sph_tpu_torch.app import configs
+    measured = {}
     for config in CONFIGS:
-        e, times = phase_kernels(dev, config)
-        errs = {k: max(v, errs.get(k, 0.0)) for k, v in e.items()}
+        phase = (phase_kernels_brute
+                 if configs.CONFIGS[config].neighbor_impl == "brute_pallas"
+                 else phase_kernels)
+        measured[config] = phase(dev, config)
     phase_small(dev)
-    for config in CONFIGS:
-        counts = phase_main(dev, config)
+    counts = {config: phase_main(dev, config) for config in CONFIGS}
 
-    # errors: the larger of the two configurations'; launches and times:
-    # the last configuration's (ghost_1m)
+    # each kernel's errors, times and bound at the configuration named in
+    # KERNELS, and its launches in that configuration's main path
     record = {"kernels": [
         {"name": f"{name}_kernel", "route": "cuda", "source": source,
-         "replaces": replaces, "launches": counts[name],
-         "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
-        for name, (source, replaces) in KERNELS.items()]}
+         "replaces": replaces, "config": config,
+         "launches": counts[config][name], **measured[config][name]}
+        for name, (source, replaces, config) in KERNELS.items()]}
+    log(f"all phases passed in {time.perf_counter() - t_start!r} s, the "
+        f"build included")
     print(json.dumps(record), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,8 @@
 5. export_4m      — 4M particles with headless frame export.
 
 All five are kept as data; ``build`` raises for the parts of a
-configuration that are not ported yet, so today ``default_131k`` and
-``ghost_1m`` build as configured.
+configuration that are not ported yet, so today ``dam_break_8k``,
+``default_131k`` and ``ghost_1m`` build as configured.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import numpy as np
 
 from sph_tpu_torch.core import params as P
 from sph_tpu_torch.core import state as S
+from sph_tpu_torch.core.device import resolve
 from sph_tpu_torch.core.params import FluidParams, SimConfig, compute_grid_dims
 
 
@@ -58,7 +59,8 @@ CONFIGS = {
 }
 
 # JAX package engine name -> the port's
-_IMPL = {"pallas": "cell", "cell": "cell", "brute": "brute"}
+_IMPL = {"pallas": "cell", "cell": "cell", "brute": "brute",
+         "brute_pallas": "brute_kernel", "brute_kernel": "brute_kernel"}
 
 _NOT_PORTED = {
     "wave_impulse": "the wave impulse: ROADMAP queue 1 item 4 "
@@ -73,7 +75,9 @@ def build(cfg: Union[str, BenchConfig], seed: int = 0,
     """Spawn + configure on ``device``: returns (state, params, sim_config).
 
     ``cfg`` is a name from ``CONFIGS`` or a ``BenchConfig``;
-    ``neighbor_impl`` overrides the configuration's engine."""
+    ``neighbor_impl`` overrides the configuration's engine.  ``device``
+    is the CUDA card unless the caller names another: with no card,
+    ``device=None`` raises (``core.device.resolve``)."""
     if isinstance(cfg, str):
         cfg = CONFIGS[cfg]
     for flag, what in _NOT_PORTED.items():
@@ -82,9 +86,8 @@ def build(cfg: Union[str, BenchConfig], seed: int = 0,
     impl = neighbor_impl or cfg.neighbor_impl
     if impl not in _IMPL:
         raise NotImplementedError(
-            f"{cfg.name}: neighbor_impl {impl!r} is not ported yet"
-            + (" (the all-pairs kernels: ROADMAP queue 1 item 2, "
-               "dam_break_8k)" if impl == "brute_pallas" else ""))
+            f"{cfg.name}: neighbor_impl {impl!r} is not ported yet")
+    device = resolve(device)
     spawn = S.spawn_standard(
         cfg.n_target, h=cfg.h, box_half=cfg.box_half, seed=seed,
         box_euler_deg=cfg.box_euler_deg,

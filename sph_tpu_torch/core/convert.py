@@ -2,7 +2,8 @@
 
 Each function takes a dict of numpy arrays, one per field of
 ``FluidParams`` / ``ParticleState`` (the field names are those of the
-``sph_tpu`` structures), and returns the port's object on ``device``.
+``sph_tpu`` structures), and returns the port's object on ``device``
+(the CUDA card unless the caller names another, ``core.device.resolve``).
 The tests use them to feed the JAX package and the port the same inputs.
 """
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from sph_tpu_torch.core.device import resolve
 from sph_tpu_torch.core.params import FluidParams
 from sph_tpu_torch.core.state import ParticleState
 
@@ -35,11 +37,13 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def params_from_numpy(d: Mapping[str, np.ndarray], device=None) -> FluidParams:
+    device = resolve(device)
     vals = {k: _tensor(d[k], device) for k in _fields(FluidParams, d)
             if k != "shape_type"}
     return FluidParams(shape_type=int(np.asarray(d["shape_type"])), **vals)
 
 
 def state_from_numpy(d: Mapping[str, np.ndarray], device=None) -> ParticleState:
+    device = resolve(device)
     return ParticleState(**{k: _tensor(d[k], device)
                             for k in _fields(ParticleState, d)})

@@ -19,6 +19,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sph_tpu_torch.core.device import resolve
+
 # Shape type ids — reference SPHFluid3D.h:117-118
 SHAPE_BOX = 0
 SHAPE_SPHERE = 1
@@ -134,6 +136,9 @@ class FluidParams:
 
     @classmethod
     def default(cls, device=None, **overrides) -> "FluidParams":
+        """The defaults with ``overrides``, on ``device``: the CUDA card
+        unless the caller names another (``core.device.resolve``)."""
+        device = resolve(device)
         vals = dict(_DEFAULTS)
         shape_type = int(overrides.pop("shape_type", SHAPE_BOX))
         for k, v in overrides.items():
@@ -285,7 +290,9 @@ class SimConfig:
 
     n: int                                 # padded particle capacity
     grid_dims: Tuple[int, int, int]        # (nx, ny, nz) static cell dims
-    neighbor_impl: str = "cell"            # 'brute' | 'cell'
+    # 'brute' (the all-pairs oracle) | 'cell' (the cell engine's
+    # kernels) | 'brute_kernel' (the all-pairs kernels, dam_break_8k)
+    neighbor_impl: str = "cell"
     river_mode: bool = False
     fountain_mode: bool = False
     stencil_capacity: int = 0              # >0 enables Liquid Logo targets

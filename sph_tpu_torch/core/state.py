@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from sph_tpu_torch.core import params as P
+from sph_tpu_torch.core.device import resolve
 
 PAD = 256  # particle capacity rounded up to this multiple
 
@@ -286,7 +287,9 @@ def concat_spawns(*spawns: SpawnResult) -> SpawnResult:
 
 def state_from_spawn(spawn: SpawnResult, pad_to: Optional[int] = None,
                      device=None) -> ParticleState:
-    """Pack a host spawn into a padded ParticleState on ``device``."""
+    """Pack a host spawn into a padded ParticleState on ``device``: the
+    CUDA card unless the caller names another (``core.device.resolve``)."""
+    device = resolve(device)
     count = spawn.count
     n = pad_to if pad_to is not None else ((count + PAD - 1) // PAD) * PAD
     if n < count:

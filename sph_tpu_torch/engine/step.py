@@ -18,14 +18,15 @@ from typing import Tuple
 from sph_tpu_torch.core.params import FluidParams, SimConfig
 from sph_tpu_torch.core.state import ParticleState
 from sph_tpu_torch.neighbors import sweeps
-from sph_tpu_torch.physics import brute_force, constraints
+from sph_tpu_torch.physics import brute_force, brute_kernels, constraints
 
 
 def neighbor_aux(state: ParticleState, params: FluidParams, dt,
                  config: SimConfig):
     """Per-run constants of the neighbor engine (the cell engine's sweep
     params and static ghost structure), built once outside the substep
-    loop: ghosts never move and face activation is fixed within a run."""
+    loop: ghosts never move and face activation is fixed within a run.
+    The all-pairs engines (``"brute"``, ``"brute_kernel"``) have none."""
     if config.neighbor_impl == "cell":
         return sweeps.prepare(state, params, dt, config)
     return None
@@ -34,9 +35,13 @@ def neighbor_aux(state: ParticleState, params: FluidParams, dt,
 def sph_solve(state: ParticleState, params: FluidParams, dt,
               config: SimConfig, aux=None) -> ParticleState:
     """The SPH force/integrate stage with the configured neighbor engine:
-    ``"brute"`` is the all-pairs oracle, ``"cell"`` the cell engine."""
+    ``"brute"`` is the all-pairs oracle, ``"cell"`` the cell engine,
+    ``"brute_kernel"`` the all-pairs kernels (``brute_pallas``'s
+    counterpart, ``dam_break_8k``)."""
     if config.neighbor_impl == "brute":
         return brute_force.substep(state, params, dt)
+    if config.neighbor_impl == "brute_kernel":
+        return brute_kernels.substep(state, params, dt)
     if config.neighbor_impl == "cell":
         return sweeps.substep(state, params, dt, config, aux=aux)
     raise ValueError(f"unknown neighbor_impl: {config.neighbor_impl!r}")

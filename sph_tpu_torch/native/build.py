@@ -26,7 +26,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 
 class SweepParamsC(ctypes.Structure):
-    """ctypes mirror of ``SphSweepParams`` in ``csrc/sweeps.h``."""
+    """ctypes mirror of ``SphSweepParams`` in ``csrc/sweeps.h`` (the
+    all-pairs kernels of ``csrc/brute.cu`` take it too and ignore the grid
+    dims)."""
     _fields_ = [(name, ctypes.c_float) for name in (
         "h", "h2", "mass", "spiky", "visc_lap", "poly6", "mu", "st",
         "gx", "gy", "gz", "dt", "rho0", "gas_k", "rho_floor")] + [
@@ -80,7 +82,9 @@ def library_path() -> str:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded sweep library with its C signatures declared."""
+    """The loaded kernel library (``csrc/*.cu``: the cell table, the cell
+    engine's sweeps and the all-pairs kernels) with its C signatures
+    declared."""
     lib = ctypes.CDLL(library_path())
     p, i = ctypes.c_void_p, ctypes.c_int
     prm = ctypes.POINTER(SweepParamsC)
@@ -91,6 +95,10 @@ def library() -> ctypes.CDLL:
     lib.sph_force_xsph.argtypes = [p, p, p, p, p, p, i, p, p, p, i, prm, p,
                                    p, p, p]
     lib.sph_force_xsph.restype = i
+    lib.sph_brute_density.argtypes = [p, p, i, prm, p, p]
+    lib.sph_brute_density.restype = i
+    lib.sph_brute_force.argtypes = [p, p, p, p, p, i, prm, p, p, p, p]
+    lib.sph_brute_force.restype = i
     return lib
 
 

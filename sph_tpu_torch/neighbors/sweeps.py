@@ -285,7 +285,8 @@ def _ghost_args(ghosts: Optional[GhostRows]):
             ghosts.ghost_end.data_ptr(), 1)
 
 
-def _c_params(pv: SweepParams) -> build.SweepParamsC:
+def c_params(pv: SweepParams) -> build.SweepParamsC:
+    """The params as the C struct the kernels take by pointer."""
     return build.SweepParamsC(*dataclasses.astuple(pv))
 
 
@@ -299,7 +300,7 @@ def density(key, pos, cell_start, cell_end, pv: SweepParams,
     n = key.shape[0]
     rho = torch.empty(n, dtype=torch.float32, device=key.device)
     pres = torch.empty_like(rho)
-    prm = _c_params(pv)
+    prm = c_params(pv)
     err = lib.sph_density(
         key.data_ptr(), pos.data_ptr(), cell_start.data_ptr(),
         cell_end.data_ptr(), n, *_ghost_args(ghosts), ctypes.byref(prm),
@@ -323,7 +324,7 @@ def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
     npos = torch.empty_like(pos)
     nvel = torch.empty_like(vel)
     acc = torch.empty_like(pos)
-    prm = _c_params(pv)
+    prm = c_params(pv)
     err = lib.sph_force_xsph(
         key.data_ptr(), pos.data_ptr(), vel.data_ptr(), rho.data_ptr(),
         cell_start.data_ptr(), cell_end.data_ptr(), n, *_ghost_args(ghosts),

@@ -88,7 +88,7 @@ def ghost_shell_numpy(seed=1):
     spawn = TS.concat_spawns(
         TS.spawn_standard(512, h=H, box_half=HALF, seed=seed),
         TS.spawn_ghost_box_shell(h=H, box_half=HALF))
-    state = TS.state_from_spawn(spawn)
+    state = TS.state_from_spawn(spawn, device="cpu")
     d = {f.name: getattr(state, f.name).numpy().copy()
          for f in dataclasses.fields(state)}
     d["vel"][:spawn.count] = np.random.default_rng(seed).normal(
@@ -108,10 +108,10 @@ def both(active):
         h=H, box_half=np.asarray(HALF, np.float32),
         ghost_face_active=np.asarray(active, np.int32)).derive_mass()
     tp = TP.FluidParams.default(
-        h=H, box_half=np.asarray(HALF, np.float32),
+        device="cpu", h=H, box_half=np.asarray(HALF, np.float32),
         ghost_face_active=active).derive_mass()
     dims = TP.compute_grid_dims(TP.SHAPE_BOX, HALF, (0, 0, 0), H)
-    return js, jp, state_from_numpy(d), tp, dims
+    return js, jp, state_from_numpy(d, device="cpu"), tp, dims
 
 
 def test_cell_table_matches_jax_sort_and_slots():
@@ -218,7 +218,7 @@ def test_cell_table_kernel_bit_equal_on_ghost_shell(cuda, faces):
     for dev in ("cpu", cuda):
         ts = state_from_numpy(d, device=dev)
         p = tp if dev == cuda else TP.FluidParams.default(
-            h=H, box_half=np.asarray(HALF, np.float32),
+            device="cpu", h=H, box_half=np.asarray(HALF, np.float32),
             ghost_face_active=ACTIVE[faces]).derive_mass()
         rows = cells.build(ts, p, dims)
         outs[str(dev)] = (rows, cells.build_ghosts(ts, p, dims))

@@ -9,6 +9,7 @@ import torch
 from sph_tpu.core import params as JP
 from sph_tpu.core import state as JS
 from sph_tpu.neighbors import planes as PL
+from sph_tpu_torch.app import configs as TCFG
 from sph_tpu_torch.core import params as TP
 from sph_tpu_torch.core import state as TS
 from sph_tpu_torch.core.convert import params_from_numpy, state_from_numpy
@@ -65,7 +66,7 @@ def test_ghost_shell_bit_identical(half):
 def test_state_from_spawn_matches():
     spawn = TS.concat_spawns(TS.spawn_standard(700, seed=3),
                              TS.spawn_standard(300, seed=4))
-    t = TS.state_from_spawn(spawn)
+    t = TS.state_from_spawn(spawn, device="cpu")
     j = to_numpy(JS.state_from_spawn(spawn))
     assert t.n == 1024
     for k, v in j.items():
@@ -73,31 +74,62 @@ def test_state_from_spawn_matches():
     np.testing.assert_array_equal(t.fluid_mask().numpy(), t.valid.numpy() > 0)
 
 
+ENTRY_POINTS = {
+    "configs.build": lambda: TCFG.build("dam_break_8k"),
+    "FluidParams.default": lambda: TP.FluidParams.default(),
+    "state_from_spawn": lambda: TS.state_from_spawn(
+        TS.spawn_standard(100, seed=0)),
+    "params_from_numpy": lambda: params_from_numpy(
+        to_numpy(TP.FluidParams.default(device="cpu"))),
+    "state_from_numpy": lambda: state_from_numpy(to_numpy(
+        TS.state_from_spawn(TS.spawn_standard(100, seed=0), device="cpu"))),
+}
+
+
+@pytest.mark.parametrize("entry", list(ENTRY_POINTS))
+def test_entry_points_need_a_card_or_an_explicit_cpu(monkeypatch, entry):
+    """With no device named, an entry point goes to the card; with no card
+    it raises and tells the caller to pass device="cpu"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[entry]()
+
+
+def test_resolve_defaults_to_cuda(monkeypatch):
+    from sph_tpu_torch.core.device import resolve
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert resolve(None) == torch.device("cuda")
+    assert resolve("cpu") == torch.device("cpu")
+    assert resolve(torch.device("cuda", 1)) == torch.device("cuda", 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert resolve("cpu") == torch.device("cpu")
+
+
 def test_params_default_and_derive_mass():
     kw = dict(h=0.31, box_half=np.asarray([2.0, 3.0, 4.0], np.float32),
               surface_tension=0.05)
-    t = TP.FluidParams.default(**kw).derive_mass()
+    t = TP.FluidParams.default(device="cpu", **kw).derive_mass()
     j = to_numpy(JP.FluidParams.default(**kw).derive_mass())
     for k, v in j.items():
         got = np.asarray(getattr(t, k))
         np.testing.assert_allclose(got, v, rtol=1e-6, err_msg=k)
         assert got.shape == v.shape, k
     with pytest.raises(KeyError):
-        TP.FluidParams.default(no_such_field=1.0)
+        TP.FluidParams.default(device="cpu", no_such_field=1.0)
 
 
 def test_convert_roundtrip():
     jp = JP.FluidParams.default(shape_type=3).derive_mass()
-    tp = params_from_numpy(to_numpy(jp))
+    tp = params_from_numpy(to_numpy(jp), device="cpu")
     assert tp.shape_type == 3
     assert tp.ghost_face_active.dtype == torch.int32
     assert tp.h.dtype == torch.float32 and tp.h.shape == ()
     js = JS.state_from_spawn(JS.spawn_standard(300, seed=1))
-    ts = state_from_numpy(to_numpy(js))
+    ts = state_from_numpy(to_numpy(js), device="cpu")
     for k, v in to_numpy(js).items():
         np.testing.assert_array_equal(getattr(ts, k).numpy(), v, err_msg=k)
     with pytest.raises(KeyError):
-        params_from_numpy({"h": np.float32(0.3)})
+        params_from_numpy({"h": np.float32(0.3)}, device="cpu")
 
 
 @pytest.mark.parametrize("euler", [(0.0, 0.0, 0.0), (20.0, 0.0, 30.0),
@@ -137,7 +169,8 @@ def _dam_break(n=2048, half=(7.0, 7.0, 7.0), seed=7):
 
 def test_grid_cell_coords_and_keys_match_planes():
     js, jp, dims = _dam_break()
-    ts, tp = state_from_numpy(to_numpy(js)), params_from_numpy(to_numpy(jp))
+    ts = state_from_numpy(to_numpy(js), device="cpu")
+    tp = params_from_numpy(to_numpy(jp), device="cpu")
     np.testing.assert_array_equal(
         TP.grid_cell_coords(ts.pos, tp, dims).numpy(),
         np.asarray(JP.grid_cell_coords(js.pos, jp, dims)))
@@ -150,14 +183,15 @@ def test_grid_cell_coords_and_keys_match_planes():
 
 
 def test_effective_half_raises_for_other_shapes():
-    tp = TP.FluidParams.default(shape_type=TP.SHAPE_SPHERE)
+    tp = TP.FluidParams.default(device="cpu", shape_type=TP.SHAPE_SPHERE)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TP.grid_min(tp)
 
 
 def test_sort_and_cell_ranges():
     js, jp, dims = _dam_break()
-    ts, tp = state_from_numpy(to_numpy(js)), params_from_numpy(to_numpy(jp))
+    ts = state_from_numpy(to_numpy(js), device="cpu")
+    tp = params_from_numpy(to_numpy(jp), device="cpu")
     rows = cells.build(ts, tp, dims)
     nc = int(np.prod(dims))
     key = rows.key.numpy()

@@ -49,7 +49,7 @@ def jparams():
 
 @pytest.fixture(scope="module")
 def tparams(jparams):
-    return params_from_numpy(to_numpy(jparams))
+    return params_from_numpy(to_numpy(jparams), device="cpu")
 
 
 def test_constants_pinned():
@@ -163,8 +163,8 @@ def oracle_cases(dam_break_small):
 @pytest.mark.parametrize("case", ["dam_break", "ghost_shell"])
 def test_brute_passes_match(oracle_cases, case):
     js, jp = oracle_cases[case]
-    ts = state_from_numpy(to_numpy(js))
-    tp = params_from_numpy(to_numpy(jp))
+    ts = state_from_numpy(to_numpy(js), device="cpu")
+    tp = params_from_numpy(to_numpy(jp), device="cpu")
     ids_j = jnp.arange(js.n, dtype=jnp.int32)
     ids_t = torch.arange(ts.n, dtype=torch.int32)
     cj = js.contrib_mask(jp.ghost_face_active)
@@ -199,8 +199,8 @@ def test_brute_passes_match(oracle_cases, case):
 @pytest.mark.parametrize("case", ["dam_break", "ghost_shell"])
 def test_brute_substep_matches(oracle_cases, case):
     js, jp = oracle_cases[case]
-    ts = state_from_numpy(to_numpy(js))
-    tp = params_from_numpy(to_numpy(jp))
+    ts = state_from_numpy(to_numpy(js), device="cpu")
+    tp = params_from_numpy(to_numpy(jp), device="cpu")
     want = to_numpy(JBF.substep(js, jp, jp.dt))
     got = TBF.substep(ts, tp, tp.dt)
     v = np.asarray(js.valid) > 0
@@ -237,8 +237,8 @@ def test_apply_container_box(rng, euler):
         color_group=np.zeros((n,), np.int32), count=n)
     js = JS.state_from_spawn(spawn, pad_to=n + 48)
     want = JCON.apply_container(js, jp)
-    got = TCON.apply_container(state_from_numpy(to_numpy(js)),
-                               params_from_numpy(to_numpy(jp)))
+    got = TCON.apply_container(state_from_numpy(to_numpy(js), device="cpu"),
+                               params_from_numpy(to_numpy(jp), device="cpu"))
     close(got.pos, want.pos, rtol=1e-5, atol=2e-6)
     close(got.vel, want.vel, rtol=1e-5, atol=2e-5)
     # particles the container moved are inside it (container frame)
@@ -250,6 +250,6 @@ def test_apply_container_box(rng, euler):
 
 def test_apply_container_other_shapes_raise(tparams):
     ts = state_from_numpy(to_numpy(
-        JS.state_from_spawn(JS.spawn_standard(100, seed=0))))
+        JS.state_from_spawn(JS.spawn_standard(100, seed=0))), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TCON.apply_container(ts, tparams.replace(shape_type=TP.SHAPE_TORUS))

@@ -39,8 +39,8 @@ def jax_run(state, params, dims, impl, n_sub):
 
 def port_run(state, params, dims, n_sub):
     """The port's cell engine on the same numpy inputs as ``jax_run``."""
-    ts = state_from_numpy(to_numpy(state))
-    tp = params_from_numpy(to_numpy(params))
+    ts = state_from_numpy(to_numpy(state), device="cpu")
+    tp = params_from_numpy(to_numpy(params), device="cpu")
     out = TSTEP.run_substeps(ts, tp, tp.dt, n_sub,
                              SimConfig(n=ts.n, grid_dims=dims))
     return {f.name: getattr(out, f.name).numpy()
@@ -221,7 +221,7 @@ def test_stability_invariants(dam_break_small):
 
 
 def test_default_131k_builds_bit_identical():
-    ts, tp, tcfg = TCFG.build("default_131k")
+    ts, tp, tcfg = TCFG.build("default_131k", device="cpu")
     js, jp, jcfg = JCFG.build(JCFG.CONFIGS["default_131k"])
     assert int(ts.fluid_mask().sum()) == 131072
     assert tcfg.neighbor_impl == "cell" and jcfg.neighbor_impl == "pallas"
@@ -236,7 +236,7 @@ def test_default_131k_builds_bit_identical():
 
 
 def test_ghost_1m_builds_bit_identical():
-    ts, tp, tcfg = TCFG.build("ghost_1m")
+    ts, tp, tcfg = TCFG.build("ghost_1m", device="cpu")
     js, jp, jcfg = JCFG.build(JCFG.CONFIGS["ghost_1m"])
     assert int(ts.fluid_mask().sum()) == jcfg.n_fluid == 1_000_000
     assert int(((ts.ghost > 0) & (ts.valid > 0)).sum()) == 147_894
@@ -257,17 +257,19 @@ def test_configs_kept_as_data_and_unported_parts_raise():
         j = JCFG.CONFIGS[name]
         for f in dataclasses.fields(cfg):
             assert getattr(cfg, f.name) == getattr(j, f.name), (name, f.name)
-    for name in ("dam_break_8k", "rotated_512k", "export_4m"):
+    for name in ("rotated_512k", "export_4m"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TCFG.build(name)
-    # the all-pairs oracle builds dam_break_8k's physics today
-    state, _, cfg = TCFG.build("dam_break_8k", neighbor_impl="brute")
-    assert cfg.neighbor_impl == "brute" and int(state.valid.sum()) == 8192
+            TCFG.build(name, device="cpu")
+    # dam_break_8k builds with the all-pairs kernels, or with the oracle
+    for impl, want in ((None, "brute_kernel"), ("brute", "brute")):
+        state, _, cfg = TCFG.build("dam_break_8k", neighbor_impl=impl,
+                                   device="cpu")
+        assert cfg.neighbor_impl == want and int(state.valid.sum()) == 8192
 
 
 def test_engine_dispatch_and_frame_accumulator():
     ts, tp, cfg = TCFG.build(TCFG.BenchConfig(
-        name="tiny", n_target=300, box_half=(2.0, 2.0, 2.0)))
+        name="tiny", n_target=300, box_half=(2.0, 2.0, 2.0)), device="cpu")
     with pytest.raises(ValueError, match="neighbor_impl"):
         TSTEP.run_substeps(ts, tp, tp.dt, 1,
                            dataclasses.replace(cfg, neighbor_impl="pallas"))
@@ -294,6 +296,7 @@ def test_port_imports_no_jax():
         "sys.meta_path.insert(0, Block())\n"
         "import sph_tpu_torch.engine.step, sph_tpu_torch.app.configs\n"
         "import sph_tpu_torch.native.build\n"
+        "import sph_tpu_torch.physics.brute_kernels\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'sph_tpu')]\n"
         "assert not bad, bad\n"

@@ -87,9 +87,9 @@ def port_inputs(case, device="cpu", warm=2):
     CPU, moved to ``device``."""
     from sph_tpu_torch.engine.step import run_substeps
     spawn, half, h, active = CASES[case]()
-    state = TS.state_from_spawn(spawn)
+    state = TS.state_from_spawn(spawn, device="cpu")
     params = TP.FluidParams.default(
-        h=h, box_half=np.asarray(half, np.float32),
+        device="cpu", h=h, box_half=np.asarray(half, np.float32),
         ghost_face_active=active).derive_mass()
     dims = TP.compute_grid_dims(TP.SHAPE_BOX, half, (0, 0, 0), h)
     state = run_substeps(state, params, params.dt, warm,
