@@ -17,21 +17,31 @@ prints no result line):
              kernels; each timed with CUDA events beside its plain
              version, with its bound (the least time the card could take
              for the same work) and the share of it that it reaches;
-4. small   — the cell engine (kernels) and the all-pairs engine (kernels)
+4. emit    — on the full ``rotated_512k`` state (after the wave and one
+             plain substep), the emitted-row force kernel against its plain
+             version, timed likewise, then 16 substeps with
+             ``emit_rows`` and 16 without from one state, bit-identical;
+5. small   — the cell engine (kernels) and the all-pairs engine (kernels)
              against the all-pairs oracle over 20 substeps of a 2k dam
              break and of a 512-particle box inside a ghost shell (the
              cell engine realigned by ``orig_id``, the all-pairs engine in
              place);
-5. main    — ``configs.build`` with no device (the card is the default)
-             then ``run_substeps`` for ``default_131k``, ``ghost_1m`` and
-             ``dam_break_8k``: 16 warm-up and 48 timed substeps each, with
-             every kernel's launch count, the physical invariants, the
-             ghosts' invariants and the fluid density against the JAX
-             reference checked.
+6. main    — ``configs.build`` with no device (the card is the default)
+             then 4 frames of ``run_substeps(frame_prologue(state), ...,
+             16)`` for ``default_131k``, ``ghost_1m``, ``dam_break_8k`` and
+             ``rotated_512k`` (the wave before every frame, the emitted-row
+             transport): the first frame warms up, the other 48 substeps
+             are timed, with every kernel's launch count, the physical
+             invariants, the ghosts' invariants and the fluid density
+             against the JAX reference checked;
+7. micro   — ``app.microbench.main`` and ``app.proto_expand.main`` (the
+             entry points of the micro-kernels) with their launch counts,
+             then each micro-kernel bit-equal to its plain version at the
+             scripts' default sizes, timed likewise.
 
 The last lines are the kernels' JSON record (each kernel with the
-configuration whose launches and times it reports), the ``nvidia-smi``
-name and power limit, and ``{"ok": true, "device": {...}}``.
+configuration or path whose launches and times it reports), the
+``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -40,8 +50,8 @@ import subprocess
 import sys
 import time
 
-WARMUP_SUBSTEPS = 16
-TIMED_SUBSTEPS = 48          # 3 frames of the reference's 16-substep cap
+FRAMES = 4                   # the first warms up, the other 3 are timed
+FRAME_SUBSTEPS = 16          # the reference's per-frame cap
 
 # The JAX reference on the same spawn (sph_tpu, neighbor_impl "binned", on
 # the CPU, seed 0) after 64 substeps: fluid density (max, mean).  Both
@@ -52,12 +62,20 @@ TIMED_SUBSTEPS = 48          # 3 frames of the reference's 16-substep cap
 # rows past it to a gravity-only update (ROADMAP R8).
 # dam_break_8k: sph_tpu "brute" (the all-pairs oracle), seed 0, printed by
 # ``PYTHONPATH=. python tests/test_torch_brute.py dam_break_8k 64``.
+# rotated_512k: sph_tpu "binned" with cell_capacity 16, 4 frames of the
+# wave and 16 substeps, printed by ``PYTHONPATH=. python
+# tests/test_torch_impulses.py rotated_512k 4 16 16``; its fullest cell
+# held 12 rows, so none overflowed (ROADMAP R9).
 REF_RHO = {
     "default_131k": (6426.8286, 1848.3309),
     "ghost_1m": (6451.4487, 1522.0352),
     "dam_break_8k": (4864.46240234375, 1669.9207237884402),
+    "rotated_512k": (5185.92529296875, 1413.0148309509968),
 }
 CONFIGS = tuple(REF_RHO)     # the main paths, in the order they are driven
+# main paths that take the emitted-row transport (SimConfig.emit_rows),
+# as ``SPH_EMIT_ROWS=1 python bench.py rotated_512k`` does in the JAX package
+EMIT_ROWS = ("rotated_512k",)
 
 # kernel vs plain tolerances
 RHO_RTOL, RHO_ATOL = 1e-5, 1e-2     # tests/test_solver_equivalence.py:49
@@ -66,7 +84,8 @@ VEL_ATOL = 1e-3
 ACC_RTOL, ACC_ATOL = 1e-4, 1e-1     # |acc| is about |g| = 980
 
 # kernel -> (source, the TPU kernel it replaces, the configuration whose
-# launches and times the JSON record reports)
+# launches and times the JSON record reports; "micro" is the path of the
+# micro-kernels' entry points)
 KERNELS = {
     "cell_table": ("sph_tpu_torch/csrc/cells.cu",
                    "sph_tpu/neighbors/mxu_permute.py:145", "ghost_1m"),
@@ -78,6 +97,13 @@ KERNELS = {
                       "sph_tpu/physics/brute_pallas.py:63", "dam_break_8k"),
     "brute_force": ("sph_tpu_torch/csrc/brute.cu",
                     "sph_tpu/physics/brute_pallas.py:82", "dam_break_8k"),
+    "force_xsph_emit": ("sph_tpu_torch/csrc/sweeps.cu",
+                        "sph_tpu/neighbors/pallas_sweeps.py:763",
+                        "rotated_512k"),
+    "smoke": ("sph_tpu_torch/csrc/micro.cu", "scripts/microbench.py:44",
+              "micro"),
+    "expand": ("sph_tpu_torch/csrc/micro.cu",
+               "scripts/proto_bfly_kernel.py:42", "micro"),
 }
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
@@ -122,36 +148,21 @@ def check_close(name, got, want, rtol, atol) -> float:
     return max_err(got, want)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Device time per call from CUDA events, after one warm-up call."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    # keep the card busy while the host enqueues the calls, so the events
-    # time the calls back to back and not the host's launch overhead
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+def counted_modules():
+    """The modules whose wrappers count their kernels' launches."""
+    from sph_tpu_torch.app import microbench, proto_expand
+    from sph_tpu_torch.neighbors import cells, sweeps
+    from sph_tpu_torch.physics import brute_kernels
+    return (cells, sweeps, brute_kernels, microbench, proto_expand)
 
 
 def reset_launches() -> None:
-    from sph_tpu_torch.neighbors import cells, sweeps
-    from sph_tpu_torch.physics import brute_kernels
-    cells.reset_launches()
-    sweeps.reset_launches()
-    brute_kernels.reset_launches()
+    for mod in counted_modules():
+        mod.reset_launches()
 
 
 def launches() -> dict:
-    from sph_tpu_torch.neighbors import cells, sweeps
-    from sph_tpu_torch.physics import brute_kernels
-    return {**cells.LAUNCHES, **sweeps.LAUNCHES, **brute_kernels.LAUNCHES}
+    return {k: v for mod in counted_modules() for k, v in mod.LAUNCHES.items()}
 
 
 def bound(nbytes: float, ops: float):
@@ -209,14 +220,15 @@ def brute_pairs(pos, npos, rho, contrib, pv):
     return out
 
 
-def report(config, name, k_ms, p_ms, nbytes, ops, rows):
+def report(config, name, k_ms, p_ms, nbytes, ops, rows, lib_ms=None):
     """Log a kernel's times and bound; return its record fields."""
     b_ms, by = bound(nbytes, ops)
-    log(f"{config} {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms "
-        f"({rows} rows); bound {b_ms!r} ms by {by} ({nbytes} bytes, "
-        f"{ops} operations), share of bound reached {b_ms / k_ms!r}")
+    log(f"{config} {name}: kernel {k_ms!r} ms, plain {p_ms!r} ms, library "
+        f"call {lib_ms!r} ms ({rows} rows); bound {b_ms!r} ms by {by} "
+        f"({nbytes} bytes, {ops} operations), share of bound reached "
+        f"{b_ms / k_ms!r}")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None}
+            "library_ms": lib_ms}
 
 
 def check_table(name, got, want) -> None:
@@ -231,6 +243,7 @@ def check_table(name, got, want) -> None:
 def phase_kernels(dev, config):
     """Each kernel against its plain version at full ``config``."""
     import torch
+    from sph_tpu_torch.app.microbench import time_ms
     from sph_tpu_torch.app import configs
     from sph_tpu_torch.neighbors import cells, sweeps
     from sph_tpu_torch.physics import constraints
@@ -331,6 +344,7 @@ def phase_kernels_brute(dev, config):
     """The two all-pairs kernels against their plain versions at full
     ``config``, after one plain all-pairs substep."""
     import torch
+    from sph_tpu_torch.app.microbench import time_ms
     from sph_tpu_torch.app import configs
     from sph_tpu_torch.neighbors.sweeps import make_pvec
     from sph_tpu_torch.physics import brute_force, constraints
@@ -388,6 +402,167 @@ def phase_kernels_brute(dev, config):
     return {name: {"max_abs_err": errs[name],
                    **report(config, name, *times[name], *work[name], n)}
             for name in times}
+
+
+def phase_emit(dev, config):
+    """The emitted-row force kernel against its plain version at full
+    ``config`` after the wave and one plain substep, timed beside
+    ``force_xsph_kernel`` and ``torch.cat`` of its four outputs; then 16
+    substeps with ``emit_rows`` and 16 without from one state, which must
+    agree bit for bit."""
+    import dataclasses
+
+    import torch
+    from sph_tpu_torch.app.microbench import time_ms
+    from sph_tpu_torch.app import configs
+    from sph_tpu_torch.engine.step import run_substeps
+    from sph_tpu_torch.neighbors import cells, sweeps
+    from sph_tpu_torch.physics import constraints
+
+    state, params, cfg = configs.build(config, device=dev)
+    state = configs.frame_prologue(config, params, FRAME_SUBSTEPS)(state)
+    pv, ghosts = sweeps.prepare(state, params, params.dt, cfg)
+    r = cells.build(state, params, cfg.grid_dims)
+    rho, pres = sweeps.density_plain(r.key, r.state.pos, r.cell_start,
+                                     r.cell_end, pv, ghosts)
+    out = sweeps.force_xsph_plain(r.key, r.state.pos, r.state.vel, rho,
+                                  r.cell_start, r.cell_end, pv, ghosts)
+    state = constraints.apply_container(
+        sweeps.reassemble(r.state, rho, pres, *out, params,
+                          ghosts=ghosts is not None), params)
+
+    r = cells.build(state, params, cfg.grid_dims)
+    key, pos, vel, cs, ce = (r.key, r.state.pos, r.state.vel, r.cell_start,
+                             r.cell_end)
+    rho, _ = sweeps.density_plain(key, pos, cs, ce, pv, ghosts)
+    args = (key, pos, vel, rho, cs, ce, pv, ghosts)
+    want = sweeps.force_xsph_emit_plain(*args)
+    got = sweeps.force_xsph_emit(*args)
+    torch.cuda.synchronize()
+    errs = [check_close("force_xsph_emit npos", got[:, 0:3], want[:, 0:3],
+                        0.0, POS_ATOL),
+            check_close("force_xsph_emit nvel", got[:, 3:6], want[:, 3:6],
+                        0.0, VEL_ATOL),
+            check_close("force_xsph_emit acc", got[:, 6:9], want[:, 6:9],
+                        ACC_RTOL, ACC_ATOL)]
+    if not torch.equal(got[:, 9:], want[:, 9:]):
+        raise AssertionError("force_xsph_emit: rho or the zero columns "
+                             "differ from the plain version")
+    parts = sweeps.force_xsph(*args)
+    if not torch.equal(got[:, :9], torch.cat(parts, 1)):
+        raise AssertionError("force_xsph_emit: not bit-equal to "
+                             "force_xsph_kernel")
+    log(f"{config} force_xsph_emit: max abs err pos {errs[0]!r} vel "
+        f"{errs[1]!r} acc {errs[2]!r}; bit-equal to force_xsph_kernel")
+
+    n, nc8 = int(key.shape[0]), 8 * cfg.num_cells
+    gbytes = 0 if ghosts is None else 12 * ghosts.count + nc8
+    cand, _, near_f, near_x = cell_pairs(key, pos, want[:, 0:3], cs, ce, pv,
+                                         ghosts)
+    log(f"{config} cell sweeps: {cand} candidates tested by the fluid rows, "
+        f"{near_f} within h (force), {near_x} (XSPH)")
+    col = rho[:, None]
+    times = (time_ms(lambda: sweeps.force_xsph_emit(*args), 50),
+             time_ms(lambda: sweeps.force_xsph_emit_plain(*args), 5))
+    lib_ms = time_ms(lambda: torch.cat([*parts, col], 1), 50)
+    log(f"{config} force_xsph (gather transport) kernel: "
+        f"{time_ms(lambda: sweeps.force_xsph(*args), 50)!r} ms")
+    # key, pos, vel, rho, ranges (+ ghosts) in; per [n, 16] out
+    rec = {"max_abs_err": max(errs), **report(
+        config, "force_xsph_emit", *times, 32 * n + nc8 + gbytes + 64 * n,
+        2 * OPS_TEST * cand + OPS_FORCE_NEAR * near_f
+        + OPS_XSPH_NEAR * near_x, n, lib_ms)}
+
+    runs = {}
+    for emit in (True, False):
+        reset_launches()
+        runs[emit] = run_substeps(state, params, params.dt, FRAME_SUBSTEPS,
+                                  dataclasses.replace(cfg, emit_rows=emit))
+        torch.cuda.synchronize()
+        got_n = launches()
+        want_n = {"force_xsph_emit": FRAME_SUBSTEPS if emit else 0,
+                  "force_xsph": 0 if emit else FRAME_SUBSTEPS}
+        if {k: got_n[k] for k in want_n} != want_n:
+            raise AssertionError(f"{config} emit_rows={emit}: launches "
+                                 f"{got_n}, expected {want_n}")
+    for f in ("pos", "vel", "acc", "density", "pressure", "foam", "orig_id"):
+        if not torch.equal(getattr(runs[True], f), getattr(runs[False], f)):
+            raise AssertionError(f"{config}: {f} after {FRAME_SUBSTEPS} "
+                                 f"substeps differs between emit_rows and "
+                                 f"the gather transport")
+    log(f"{config}: {FRAME_SUBSTEPS} substeps with emit_rows bit-identical "
+        f"to {FRAME_SUBSTEPS} without (pos, vel, acc, density, pressure, "
+        f"foam, orig_id)")
+    return {"force_xsph_emit": rec}
+
+
+def phase_micro(dev):
+    """The micro-kernels' entry points, with their launch counts, then
+    each micro-kernel against its plain version at the scripts' default
+    sizes, timed beside one library call that computes the same."""
+    import numpy as np
+    import torch
+    from sph_tpu_torch.app.microbench import time_ms
+    from sph_tpu_torch.app import microbench, proto_expand
+
+    reset_launches()
+    microbench.main([])
+    res = proto_expand.main()
+    counts = launches()
+    # the smoke check's one launch; the expand's check and its timing
+    # (one warm-up, microbench.REPS timed)
+    expect = dict.fromkeys(counts, 0)
+    expect.update(smoke=1, expand=2 + microbench.REPS)
+    if counts != expect:
+        raise AssertionError(f"micro: launches {counts}, expected {expect}")
+    log(f"micro entry points: launches {counts}; expand {res}")
+
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (256, 512)).astype(np.float32), device=dev)   # the script's shape
+    nrow, s, maxr = proto_expand.sizes()
+    starts, rows, _ = proto_expand.synth(nrow, s, maxr)
+    st = torch.as_tensor(starts, device=dev)
+    rw = torch.as_tensor(rows, device=dev)
+    if not torch.equal(microbench.smoke(x), microbench.smoke_plain(x)):
+        raise AssertionError("smoke: kernel is not bit-equal to the plain "
+                             "version")
+    want = proto_expand.expand_plain(st, rw, s)
+    if not torch.equal(proto_expand.expand(st, rw, s), want):
+        raise AssertionError("expand: kernel is not bit-equal to the plain "
+                             "version")
+    log(f"micro: smoke {tuple(x.shape)} and expand ({nrow} rows, S={s}) "
+        f"bit-equal to their plain versions")
+
+    # the library call for the expand: one index_put_ of the elements'
+    # payload into a filled output, its indices made beforehand
+    n, f = int(starts[-1]), proto_expand.F
+    yy = torch.repeat_interleave(torch.arange(nrow, device=dev),
+                                 (st[1:] - st[:-1]).long())[:, None]
+    ff = torch.arange(f, device=dev)[None, :]
+    tt = rw[:n, f].long()[:, None]
+    vals = rw[:n, :f]
+    filled = torch.full_like(want, -1.0)
+    work = {
+        # x in, o out; 4 multiplies and 4 adds per value
+        "smoke": (8 * x.numel(), 8 * x.numel(), x.numel(), (
+            time_ms(lambda: microbench.smoke(x), 50),
+            time_ms(lambda: microbench.smoke_plain(x), 50),
+            time_ms(lambda: x * 8.0, 50))),
+        # starts and each element's payload and target in, out written;
+        # the binary searches' compares as operations
+        "expand": (4 * (nrow + 1) + 4 * (f + 1) * n + 4 * want.numel(),
+                   nrow * s * (int(np.ceil(np.log2(maxr))) + 1), n, (
+                       time_ms(lambda: proto_expand.expand(st, rw, s), 50),
+                       time_ms(lambda: proto_expand.expand_plain(st, rw, s),
+                               50),
+                       time_ms(lambda: filled.index_put_((yy, ff, tt), vals),
+                               50))),
+    }
+    measured = {}
+    for name, (nbytes, ops, rows_, (k_ms, p_ms, lib_ms)) in work.items():
+        measured[name] = {"max_abs_err": 0.0, **report(
+            "micro", name, k_ms, p_ms, nbytes, ops, rows_, lib_ms)}
+    return measured, counts
 
 
 def ghost_shell_fixture(dev):
@@ -463,7 +638,10 @@ def phase_small(dev):
 
 def phase_main(dev, config):
     """The port's main path: configs.build with no device (the card is
-    the default) + run_substeps at ``config``."""
+    the default), then frames of frame_prologue + run_substeps at
+    ``config``."""
+    import dataclasses
+
     import torch
     from sph_tpu_torch.app import configs
     from sph_tpu_torch.core.params import rotation_matrix
@@ -473,6 +651,9 @@ def phase_main(dev, config):
     if start.pos.device != dev or params.h.device != dev:
         raise AssertionError(f"{config}: configs.build put the state on "
                              f"{start.pos.device}, not on {dev}")
+    if config in EMIT_ROWS:
+        cfg = dataclasses.replace(cfg, emit_rows=True)
+    prologue = configs.frame_prologue(config, params, FRAME_SUBSTEPS)
     state = start
     n_fluid = int(state.fluid_mask().sum())
     n_ghost = int((state.ghost > 0).sum())
@@ -480,20 +661,24 @@ def phase_main(dev, config):
     torch.cuda.synchronize()
 
     reset_launches()
-    state = run_substeps(state, params, dt, WARMUP_SUBSTEPS, cfg)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    state = run_substeps(state, params, dt, TIMED_SUBSTEPS, cfg)
+    for frame in range(FRAMES):
+        if frame == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state = run_substeps(prologue(state), params, dt, FRAME_SUBSTEPS,
+                             cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launches()
 
-    total = WARMUP_SUBSTEPS + TIMED_SUBSTEPS
-    expect = dict.fromkeys(KERNELS, 0)
+    total = FRAMES * FRAME_SUBSTEPS
+    timed = total - FRAME_SUBSTEPS
+    expect = dict.fromkeys(counts, 0)
     if cfg.neighbor_impl == "cell":
         # the ghost structure is one more cell table per run_substeps call
-        expect.update(density=total, force_xsph=total,
-                      cell_table=total + (2 if n_ghost else 0))
+        expect.update({"density": total, "cell_table": total + (
+            FRAMES if n_ghost else 0),
+            "force_xsph_emit" if cfg.emit_rows else "force_xsph": total})
     else:
         expect.update(brute_density=total, brute_force=total)
     if counts != expect:
@@ -513,7 +698,8 @@ def phase_main(dev, config):
     rho_mean = float(rho.double().mean())
     vmax = float(torch.linalg.vector_norm(vel, dim=-1).max())
     log(f"main path {config}: {n_fluid} fluid + {n_ghost} ghost rows, "
-        f"{total} substeps, launches {counts}; density range "
+        f"{FRAMES} frames of {FRAME_SUBSTEPS} substeps (emit_rows "
+        f"{cfg.emit_rows}), launches {counts}; density range "
         f"[{rho_min!r}, {rho_max!r}], mean {rho_mean!r}, max |v| {vmax!r}")
     if not rho_min >= 0.5 * rho0 - 1e-3:
         raise AssertionError(f"{config}: density {rho_min} below the floor")
@@ -532,11 +718,11 @@ def phase_main(dev, config):
     if n_ghost:
         check_ghosts(config, start, state, rho0)
 
-    ms = wall / TIMED_SUBSTEPS * 1e3
-    rate = n_fluid * TIMED_SUBSTEPS / wall
+    ms = wall / timed * 1e3
+    rate = n_fluid * timed / wall
     log(f"main path {config}: {ms!r} ms/substep, {rate!r} particle-steps/s "
-        f"(host clock over {TIMED_SUBSTEPS} substeps after {WARMUP_SUBSTEPS} "
-        f"warm-up) on {card_line()}")
+        f"(host clock over {timed} substeps and their frames' prologues, "
+        f"after a frame of warm-up) on {card_line()}")
     return counts
 
 
@@ -558,18 +744,17 @@ def main() -> int:
     build.library()
     log(f"build: {time.perf_counter() - t0!r} s")
 
-    from sph_tpu_torch.app import configs
-    measured = {}
-    for config in CONFIGS:
-        phase = (phase_kernels_brute
-                 if configs.CONFIGS[config].neighbor_impl == "brute_pallas"
-                 else phase_kernels)
-        measured[config] = phase(dev, config)
+    measured = {"default_131k": phase_kernels(dev, "default_131k"),
+                "ghost_1m": phase_kernels(dev, "ghost_1m"),
+                "dam_break_8k": phase_kernels_brute(dev, "dam_break_8k"),
+                "rotated_512k": phase_emit(dev, "rotated_512k")}
     phase_small(dev)
     counts = {config: phase_main(dev, config) for config in CONFIGS}
+    measured["micro"], counts["micro"] = phase_micro(dev)
 
     # each kernel's errors, times and bound at the configuration named in
-    # KERNELS, and its launches in that configuration's main path
+    # KERNELS, and its launches in that configuration's main path (or, for
+    # the micro-kernels, in their entry points' run)
     record = {"kernels": [
         {"name": f"{name}_kernel", "route": "cuda", "source": source,
          "replaces": replaces, "config": config,

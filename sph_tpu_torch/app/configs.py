@@ -8,13 +8,15 @@
 5. export_4m      — 4M particles with headless frame export.
 
 All five are kept as data; ``build`` raises for the parts of a
-configuration that are not ported yet, so today ``dam_break_8k``,
-``default_131k`` and ``ghost_1m`` build as configured.
+configuration that are not ported yet, so today every configuration but
+``export_4m`` builds as configured.  ``frame_prologue`` is what runs
+before every frame of substeps (``bench.py:79-88``): the wave impulse for
+``rotated_512k``, nothing for the others.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 
@@ -22,6 +24,8 @@ from sph_tpu_torch.core import params as P
 from sph_tpu_torch.core import state as S
 from sph_tpu_torch.core.device import resolve
 from sph_tpu_torch.core.params import FluidParams, SimConfig, compute_grid_dims
+from sph_tpu_torch.core.state import ParticleState
+from sph_tpu_torch.physics.impulses import wave_impulse
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +42,7 @@ class BenchConfig:
     grid_cap: int = P.GRID_DIM_CAP
     viz_export: bool = False
     spawn_rotation: str = "ignore"      # see core.state.spawn_standard
+    emit_rows: bool = False             # SimConfig.emit_rows
 
 
 CONFIGS = {
@@ -63,8 +68,6 @@ _IMPL = {"pallas": "cell", "cell": "cell", "brute": "brute",
          "brute_pallas": "brute_kernel", "brute_kernel": "brute_kernel"}
 
 _NOT_PORTED = {
-    "wave_impulse": "the wave impulse: ROADMAP queue 1 item 4 "
-                    "(rotated_512k)",
     "viz_export": "headless frame export: ROADMAP queue 1 item 5 "
                   "(export_4m)",
 }
@@ -106,5 +109,24 @@ def build(cfg: Union[str, BenchConfig], seed: int = 0,
     dims = compute_grid_dims(P.SHAPE_BOX, np.asarray(cfg.box_half),
                              np.asarray(cfg.box_euler_deg), cfg.h,
                              cap=cfg.grid_cap)
-    sim = SimConfig(n=state.n, grid_dims=dims, neighbor_impl=_IMPL[impl])
+    sim = SimConfig(n=state.n, grid_dims=dims, neighbor_impl=_IMPL[impl],
+                    emit_rows=cfg.emit_rows)
     return state, params, sim
+
+
+def frame_prologue(cfg: Union[str, BenchConfig], params: FluidParams,
+                   n_substeps: int) -> Callable[[ParticleState],
+                                                ParticleState]:
+    """What runs before each frame of ``n_substeps`` substeps
+    (``bench.py:79-88``).  For a wave configuration the reference kicks
+    once per frame, dt-premultiplied (``Scene0p.cpp:1303-1307``), and a
+    frame of substeps stands in for one reference frame; the other
+    configurations return the state unchanged."""
+    if isinstance(cfg, str):
+        cfg = CONFIGS[cfg]
+    if not cfg.wave_impulse:
+        return lambda state: state
+    amplitude = 60.0 * float(params.dt) * n_substeps
+    return lambda state: wave_impulse(
+        state, amplitude=amplitude, wavelength=4.0, phase=0.7,
+        direction=(1.0, 0.0, 0.3))

@@ -1,10 +1,14 @@
 """Where a substep's time goes on the card, for one bench configuration.
 
     python -m sph_tpu_torch.app.profile_substeps dam_break_8k
+    python -m sph_tpu_torch.app.profile_substeps rotated_512k --emit-rows
 
-After 32 warm-up substeps, times 3 windows of 16 substeps with the host
-clock around synchronised work (no profiler), then profiles one more
-window of 16 with ``torch.profiler`` (CPU and CUDA activity).
+Each window is one frame: the configuration's frame prologue
+(``configs.frame_prologue``: the wave at ``rotated_512k``, nothing
+elsewhere), then 16 substeps.  After 2 warm-up frames, times 3 windows
+with the host clock around synchronised work (no profiler), then profiles
+one more window with ``torch.profiler`` (CPU and CUDA activity).
+``--emit-rows`` runs the cell engine with ``SimConfig.emit_rows``.
 It prints the ms per substep of each window, the device operations
 (kernels, copies, fills) per substep, the device busy time per substep
 (the union of the device intervals), the device's idle share of the median
@@ -15,6 +19,7 @@ object.  It needs a CUDA card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import time
@@ -25,7 +30,7 @@ import torch
 from sph_tpu_torch.app import configs
 from sph_tpu_torch.engine.step import run_substeps
 
-WARMUP, SUBSTEPS, WINDOWS, TOP = 32, 16, 3, 12
+WARMUP_FRAMES, SUBSTEPS, WINDOWS, TOP = 2, 16, 3, 12
 
 
 def _busy_us(intervals) -> float:
@@ -43,19 +48,27 @@ def _busy_us(intervals) -> float:
     return total
 
 
-def profile(name: str, warmup: int = WARMUP, substeps: int = SUBSTEPS,
+def profile(name: str, emit_rows: bool = False,
+            warmup_frames: int = WARMUP_FRAMES, substeps: int = SUBSTEPS,
             windows: int = WINDOWS, top: int = TOP):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_substeps needs a CUDA card")
     state, params, cfg = configs.build(name)
+    cfg = dataclasses.replace(cfg, emit_rows=emit_rows)
     dt = params.dt
-    state = run_substeps(state, params, dt, warmup, cfg)
+    prologue = configs.frame_prologue(name, params, substeps)
+
+    def frame(st):
+        return run_substeps(prologue(st), params, dt, substeps, cfg)
+
+    for _ in range(warmup_frames):
+        state = frame(state)
     torch.cuda.synchronize()
 
     ms = []
     for _ in range(windows):
         t0 = time.perf_counter()
-        state = run_substeps(state, params, dt, substeps, cfg)
+        state = frame(state)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) / substeps * 1e3)
 
@@ -63,7 +76,7 @@ def profile(name: str, warmup: int = WARMUP, substeps: int = SUBSTEPS,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        state = run_substeps(state, params, dt, substeps, cfg)
+        state = frame(state)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) / substeps * 1e3
 
@@ -79,7 +92,8 @@ def profile(name: str, warmup: int = WARMUP, substeps: int = SUBSTEPS,
                        for e in dev) / substeps / 1e3
     med = statistics.median(ms)
     out = {
-        "config": name, "card": torch.cuda.get_device_name(0),
+        "config": name, "emit_rows": emit_rows,
+        "card": torch.cuda.get_device_name(0),
         "fluid_rows": int(state.fluid_mask().sum()),
         "ms_per_substep": ms, "median_ms_per_substep": med,
         "profiled_ms_per_substep": prof_ms,
@@ -108,7 +122,10 @@ def profile(name: str, warmup: int = WARMUP, substeps: int = SUBSTEPS,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("config", choices=sorted(configs.CONFIGS))
-    profile(ap.parse_args(argv).config)
+    ap.add_argument("--emit-rows", action="store_true",
+                    help="the cell engine's emitted-row transport")
+    args = ap.parse_args(argv)
+    profile(args.config, emit_rows=args.emit_rows)
 
 
 if __name__ == "__main__":

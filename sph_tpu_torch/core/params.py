@@ -298,6 +298,11 @@ class SimConfig:
     stencil_capacity: int = 0              # >0 enables Liquid Logo targets
     terrain_res: Tuple[int, int] = (64, 64)
     max_substeps: int = 16                 # per-frame cap, Scene0p.h:48
+    # the cell engine's force sweep also packs its outputs and rho into
+    # one [N, 16] row buffer that the substep reads them from (the
+    # counterpart of the JAX package's emitted-row transport, bit-identical
+    # to the default)
+    emit_rows: bool = False
 
     @property
     def num_cells(self) -> int:

@@ -1,11 +1,25 @@
 // Cell-engine sweep kernels for Hopper (sm_90a), written by hand.
 //
-// Replaces the two Pallas TPU kernels of the JAX package's cell engine:
+// Replaces the Pallas TPU kernels of the JAX package's cell engine:
 //   density_kernel    <- sph_tpu/neighbors/pallas_sweeps.py:_density_kernel
 //   force_xsph_kernel <- sph_tpu/neighbors/pallas_sweeps.py:_force_xsph_kernel
+//   force_xsph_kernel<true> (force_xsph_emit_kernel)
+//                     <- the same, with pallas_sweeps.py:_emit_tail
 // They compute the same thing; the TPU blocking (pair-packed y rows,
 // 128-lane chunks, rank classes, occupancy words, 3x3 block halos) exists
 // only for Mosaic and is not carried over.
+//
+// The emit variant.  On the TPU the force kernel's outputs live in the
+// slot table, and _emit_tail streams them, with rho, to rows in sorted-
+// particle order (one-hot matmuls into window-padded 64-row tiles, then
+// DMAs), so that the substep need not gather them back.  Here the rows
+// are already in sorted-particle order, so what is left of it is the
+// packing: each row's final npos, nvel, acc and its input rho go to one
+// [n][16] float32 row of `per` (cols 0:10 npx npy npz vx vy vz ax ay az
+// rho, 10:16 zero, the TPU's emitted columns), as four 16-byte stores of
+// one 64-byte row.  No windows, no padding, no one-hot product: those
+// exist only for the TPU's layout.  It costs 28 more bytes per row
+// written than the three [n][3] outputs; the pair walk is the same.
 //
 // What bounds them on the card: neighbor-row loads.  Each particle reads
 // the position (and, in the force sweep, velocity and density) of about
@@ -121,6 +135,37 @@ density_kernel(const int* __restrict__ key, const float* __restrict__ pos,
   pres[i] = fmaxf(p.gas_k * (r - p.rho0), 0.f);
 }
 
+// Row i's outputs: npos, nvel, acc into their [n][3] buffers, or, for the
+// emit variant, with rho into the 64-byte row per[i] (four float4 stores;
+// torch allocations are at least 16-byte aligned, so every row is too).
+template <bool kEmit>
+__device__ __forceinline__ void store_row(int i, float px, float py, float pz,
+                                          float vx, float vy, float vz,
+                                          float ax, float ay, float az,
+                                          float r, float* __restrict__ npos,
+                                          float* __restrict__ nvel,
+                                          float* __restrict__ acc,
+                                          float* __restrict__ per) {
+  if constexpr (kEmit) {
+    float4* row = reinterpret_cast<float4*>(per + 16 * static_cast<size_t>(i));
+    row[0] = make_float4(px, py, pz, vx);
+    row[1] = make_float4(vy, vz, ax, ay);
+    row[2] = make_float4(az, r, 0.f, 0.f);
+    row[3] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else {
+    npos[3 * i] = px;
+    npos[3 * i + 1] = py;
+    npos[3 * i + 2] = pz;
+    nvel[3 * i] = vx;
+    nvel[3 * i + 1] = vy;
+    nvel[3 * i + 2] = vz;
+    acc[3 * i] = ax;
+    acc[3 * i + 1] = ay;
+    acc[3 * i + 2] = az;
+  }
+}
+
+template <bool kEmit>
 __global__ void __launch_bounds__(kBlock)
 force_xsph_kernel(const int* __restrict__ key, const float* __restrict__ pos,
                   const float* __restrict__ vel, const float* __restrict__ rho,
@@ -128,26 +173,20 @@ force_xsph_kernel(const int* __restrict__ key, const float* __restrict__ pos,
                   int n, const float* __restrict__ gpos,
                   const int* __restrict__ gcs, const int* __restrict__ gce,
                   int has_ghosts, SphSweepParams p, float* __restrict__ npos,
-                  float* __restrict__ nvel, float* __restrict__ acc) {
+                  float* __restrict__ nvel, float* __restrict__ acc,
+                  float* __restrict__ per) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int k = key[i];
   const float xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
   const float vxi = vel[3 * i], vyi = vel[3 * i + 1], vzi = vel[3 * i + 2];
+  const float rhoi = rho[i];
   if (k >= p.nx * p.ny * p.nz) {
-    npos[3 * i] = xi;
-    npos[3 * i + 1] = yi;
-    npos[3 * i + 2] = zi;
-    nvel[3 * i] = vxi;
-    nvel[3 * i + 1] = vyi;
-    nvel[3 * i + 2] = vzi;
-    acc[3 * i] = 0.f;
-    acc[3 * i + 1] = 0.f;
-    acc[3 * i + 2] = 0.f;
+    store_row<kEmit>(i, xi, yi, zi, vxi, vyi, vzi, 0.f, 0.f, 0.f, rhoi, npos,
+                     nvel, acc, per);
     return;
   }
   const Walk w = walk_of(k, p);
-  const float rhoi = rho[i];
   const float presi = fmaxf(p.gas_k * (rhoi - p.rho0), 0.f);
 
   // --- pass 1: pressure, viscosity, color field (SPHFluid.comp:129-151)
@@ -264,15 +303,8 @@ force_xsph_kernel(const int* __restrict__ key, const float* __restrict__ pos,
   const float sp = sqrtf(vx * vx + vy * vy + vz * vz);
   const float scale = sp > max_speed ? max_speed / fmaxf(sp, 1e-30f) : 1.f;
 
-  npos[3 * i] = npx;
-  npos[3 * i + 1] = npy;
-  npos[3 * i + 2] = npz;
-  nvel[3 * i] = vx * scale;
-  nvel[3 * i + 1] = vy * scale;
-  nvel[3 * i + 2] = vz * scale;
-  acc[3 * i] = ax;
-  acc[3 * i + 1] = ay;
-  acc[3 * i + 2] = az;
+  store_row<kEmit>(i, npx, npy, npz, vx * scale, vy * scale, vz * scale, ax,
+                   ay, az, rhoi, npos, nvel, acc, per);
 }
 
 int grid_for(int n) { return (n + kBlock - 1) / kBlock; }
@@ -303,10 +335,27 @@ extern "C" int sph_force_xsph(const int* key, const float* pos,
                               float* npos, float* nvel, float* acc,
                               void* stream) {
   if (n > 0) {
-    force_xsph_kernel<<<grid_for(n), kBlock, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    force_xsph_kernel<false><<<grid_for(n), kBlock, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
         key, pos, vel, rho, cell_start, cell_end, n, ghost_pos, ghost_start,
-        ghost_end, has_ghosts, *params, npos, nvel, acc);
+        ghost_end, has_ghosts, *params, npos, nvel, acc, nullptr);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int sph_force_xsph_emit(const int* key, const float* pos,
+                                   const float* vel, const float* rho,
+                                   const int* cell_start, const int* cell_end,
+                                   int n, const float* ghost_pos,
+                                   const int* ghost_start,
+                                   const int* ghost_end, int has_ghosts,
+                                   const SphSweepParams* params, float* per,
+                                   void* stream) {
+  if (n > 0) {
+    force_xsph_kernel<true><<<grid_for(n), kBlock, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        key, pos, vel, rho, cell_start, cell_end, n, ghost_pos, ghost_start,
+        ghost_end, has_ghosts, *params, nullptr, nullptr, nullptr, per);
   }
   return static_cast<int>(cudaGetLastError());
 }

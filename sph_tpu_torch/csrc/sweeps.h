@@ -42,6 +42,15 @@ int sph_force_xsph(const int* key, const float* pos, const float* vel,
                    int has_ghosts, const SphSweepParams* params, float* npos,
                    float* nvel, float* acc, void* stream);
 
+// The same sweep, its outputs packed with rho into per [n][16] float32:
+// cols 0:3 npos, 3:6 nvel, 6:9 acc, 9 rho (the input), 10:16 zero.
+int sph_force_xsph_emit(const int* key, const float* pos, const float* vel,
+                        const float* rho, const int* cell_start,
+                        const int* cell_end, int n, const float* ghost_pos,
+                        const int* ghost_start, const int* ghost_end,
+                        int has_ghosts, const SphSweepParams* params,
+                        float* per, void* stream);
+
 #ifdef __cplusplus
 }
 #endif

@@ -4,8 +4,10 @@ Counterpart of ``sph_tpu/native/__init__.py:23-51``, with no fallback:
 a missing ``nvcc`` or a failed build raises.  The library is built at
 first use into ``sph_tpu_torch/_build/``, named by a hash of the sources
 and the flags, so an edited source builds anew and an unchanged one is
-loaded as it is.  The kernel wrappers share its input check and launch
-count (:func:`check_tensor`, :func:`launched`).
+loaded as it is.  Each ``.cu`` is compiled by its own ``nvcc``, all at
+once, and the objects are then linked into one shared library.  The
+kernel wrappers share its input check and launch count
+(:func:`check_tensor`, :func:`launched`).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 
 class SweepParamsC(ctypes.Structure):
@@ -64,27 +66,35 @@ def library_path() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in srcs if s.endswith(".cu")]]
-    try:
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        cus = [s for s in srcs if s.endswith(".cu")]
+        objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in cus]
+        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
+                for s, o in zip(cus, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in jobs]
+        logs = [p.communicate()[0] for p in procs]
+        for cmd, p, log in zip(jobs, procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                                   f"{' '.join(cmd)}\n{log}")
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-o", lib, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}): "
+            raise RuntimeError(f"nvcc link failed ({res.returncode}): "
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        os.replace(lib, out)
     return out
 
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (``csrc/*.cu``: the cell table, the cell
-    engine's sweeps and the all-pairs kernels) with its C signatures
-    declared."""
+    engine's sweeps, the all-pairs kernels and the micro-kernels) with its
+    C signatures declared."""
     lib = ctypes.CDLL(library_path())
     p, i = ctypes.c_void_p, ctypes.c_int
     prm = ctypes.POINTER(SweepParamsC)
@@ -95,10 +105,17 @@ def library() -> ctypes.CDLL:
     lib.sph_force_xsph.argtypes = [p, p, p, p, p, p, i, p, p, p, i, prm, p,
                                    p, p, p]
     lib.sph_force_xsph.restype = i
+    lib.sph_force_xsph_emit.argtypes = [p, p, p, p, p, p, i, p, p, p, i, prm,
+                                        p, p]
+    lib.sph_force_xsph_emit.restype = i
     lib.sph_brute_density.argtypes = [p, p, i, prm, p, p]
     lib.sph_brute_density.restype = i
     lib.sph_brute_force.argtypes = [p, p, p, p, p, i, prm, p, p, p, p]
     lib.sph_brute_force.restype = i
+    lib.sph_smoke.argtypes = [p, p, i, p]
+    lib.sph_smoke.restype = i
+    lib.sph_expand.argtypes = [p, p, i, i, i, i, p, p]
+    lib.sph_expand.restype = i
     return lib
 
 

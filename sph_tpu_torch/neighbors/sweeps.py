@@ -7,6 +7,9 @@
    color-field surface tension, gravity, semi-implicit Euler, the XSPH
    sweep (fresh self pos/vel against stale neighbor pos/vel) and its
    apply, and the CFL speed cap (``SPHFluid.comp:109-207``).
+   **force_xsph_emit** is the same sweep with its outputs and rho packed
+   into one ``[N, 16]`` row buffer (the emitted-row transport of
+   ``SimConfig.emit_rows``, ``pallas_sweeps.py:763``).
 
 Each sweep is a CUDA kernel (``csrc/sweeps.cu``) with a plain torch
 version of the same function beside it.  The wrapper picks by the
@@ -38,7 +41,11 @@ _PLAIN_CHUNK = 8192
 
 # Kernel launches since the last reset_launches() — only the CUDA path
 # counts, and only where it launches.
-LAUNCHES = {"density": 0, "force_xsph": 0}
+LAUNCHES = {"density": 0, "force_xsph": 0, "force_xsph_emit": 0}
+
+# Columns of force_xsph_emit's rows, as the TPU's emitted rows
+# (pallas_sweeps.py:775): npx npy npz vx vy vz ax ay az rho, then zeros.
+EMIT_COLS = 16
 
 
 def reset_launches() -> None:
@@ -249,6 +256,17 @@ def force_xsph_plain(key, pos, vel, rho, cell_start, cell_end,
     return npos, nvel, acc
 
 
+def force_xsph_emit_plain(key, pos, vel, rho, cell_start, cell_end,
+                          pv: SweepParams, ghosts: Optional[GhostRows] = None):
+    """Plain torch version of ``force_xsph_emit_kernel``: per [N, 16], the
+    outputs of ``force_xsph_plain`` and ``rho`` packed by ``torch.cat``."""
+    npos, nvel, acc = force_xsph_plain(key, pos, vel, rho, cell_start,
+                                       cell_end, pv, ghosts)
+    pad = torch.zeros(key.shape[0], EMIT_COLS - 10, dtype=torch.float32,
+                      device=key.device)
+    return torch.cat([npos, nvel, acc, rho[:, None], pad], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # wrappers: plain version on CPU tensors, the CUDA kernel on CUDA tensors
 # ---------------------------------------------------------------------------
@@ -334,6 +352,28 @@ def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
     return npos, nvel, acc
 
 
+def force_xsph_emit(key, pos, vel, rho, cell_start, cell_end,
+                    pv: SweepParams, ghosts: Optional[GhostRows] = None):
+    """per [N, 16] of the sorted rows: cols 0:3 npos, 3:6 nvel, 6:9 acc
+    (as ``force_xsph``), 9 rho (the input), 10:16 zero."""
+    if key.device.type == "cpu":
+        return force_xsph_emit_plain(key, pos, vel, rho, cell_start,
+                                     cell_end, pv, ghosts)
+    n = key.shape[0]
+    _check_rows(key, pos, cell_start, cell_end, pv, ghosts,
+                vel=(vel, (n, 3)), rho=(rho, (n,)))
+    lib = build.library()
+    per = torch.empty(n, EMIT_COLS, dtype=torch.float32, device=key.device)
+    prm = c_params(pv)
+    err = lib.sph_force_xsph_emit(
+        key.data_ptr(), pos.data_ptr(), vel.data_ptr(), rho.data_ptr(),
+        cell_start.data_ptr(), cell_end.data_ptr(), n, *_ghost_args(ghosts),
+        ctypes.byref(prm), per.data_ptr(),
+        torch.cuda.current_stream(key.device).cuda_stream)
+    build.launched(LAUNCHES, "force_xsph_emit", err)
+    return per
+
+
 # ---------------------------------------------------------------------------
 # substep composition
 # ---------------------------------------------------------------------------
@@ -385,7 +425,12 @@ def substep(state: ParticleState, params: FluidParams, dt,
             config: SimConfig, aux: Optional[CellAux] = None
             ) -> ParticleState:
     """One cell-engine substep.  Returns the state in SORTED order
-    (identity lives in ``orig_id``), as the JAX engine does."""
+    (identity lives in ``orig_id``), as the JAX engine does.
+
+    With ``config.emit_rows`` the force sweep packs its outputs and rho
+    into rows and the state reads pos, vel, acc and rho from there
+    (``pallas_sweeps.py:1279-1335``; the pressure is the density sweep's,
+    a function of the same rho); the result is bit-identical."""
     if aux is None:
         aux = prepare(state, params, dt, config)
     pv, ghosts = aux
@@ -393,7 +438,13 @@ def substep(state: ParticleState, params: FluidParams, dt,
     s = rows.state
     rho, pres = density(rows.key, s.pos, rows.cell_start, rows.cell_end, pv,
                         ghosts)
-    npos, nvel, acc = force_xsph(rows.key, s.pos, s.vel, rho,
-                                 rows.cell_start, rows.cell_end, pv, ghosts)
+    if config.emit_rows:
+        per = force_xsph_emit(rows.key, s.pos, s.vel, rho, rows.cell_start,
+                              rows.cell_end, pv, ghosts)
+        npos, nvel, acc, rho = per[:, 0:3], per[:, 3:6], per[:, 6:9], per[:, 9]
+    else:
+        npos, nvel, acc = force_xsph(rows.key, s.pos, s.vel, rho,
+                                     rows.cell_start, rows.cell_end, pv,
+                                     ghosts)
     return reassemble(s, rho, pres, npos, nvel, acc, params,
                       ghosts=ghosts is not None)

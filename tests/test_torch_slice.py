@@ -251,15 +251,30 @@ def test_ghost_1m_builds_bit_identical():
                                    rtol=1e-6, err_msg=k)
 
 
+def test_rotated_512k_builds_bit_identical():
+    ts, tp, tcfg = TCFG.build("rotated_512k", device="cpu")
+    js, jp, jcfg = JCFG.build(JCFG.CONFIGS["rotated_512k"])
+    assert int(ts.fluid_mask().sum()) == jcfg.n_fluid == 524_288
+    assert tcfg.n == jcfg.n
+    assert tcfg.grid_dims == jcfg.grid_dims == (112, 112, 112)
+    assert tcfg.neighbor_impl == "cell"
+    assert tcfg.emit_rows == jcfg.emit_rows is False
+    for k, want in to_numpy(js).items():
+        np.testing.assert_array_equal(getattr(ts, k).numpy(), want,
+                                      err_msg=k)
+    for k, want in to_numpy(jp).items():
+        np.testing.assert_allclose(np.asarray(getattr(tp, k)), want,
+                                   rtol=1e-6, err_msg=k)
+
+
 def test_configs_kept_as_data_and_unported_parts_raise():
     assert set(TCFG.CONFIGS) == set(JCFG.CONFIGS)
     for name, cfg in TCFG.CONFIGS.items():
         j = JCFG.CONFIGS[name]
         for f in dataclasses.fields(cfg):
             assert getattr(cfg, f.name) == getattr(j, f.name), (name, f.name)
-    for name in ("rotated_512k", "export_4m"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TCFG.build(name, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TCFG.build("export_4m", device="cpu")
     # dam_break_8k builds with the all-pairs kernels, or with the oracle
     for impl, want in ((None, "brute_kernel"), ("brute", "brute")):
         state, _, cfg = TCFG.build("dam_break_8k", neighbor_impl=impl,
@@ -297,6 +312,8 @@ def test_port_imports_no_jax():
         "import sph_tpu_torch.engine.step, sph_tpu_torch.app.configs\n"
         "import sph_tpu_torch.native.build\n"
         "import sph_tpu_torch.physics.brute_kernels\n"
+        "import sph_tpu_torch.physics.impulses\n"
+        "import sph_tpu_torch.app.microbench, sph_tpu_torch.app.proto_expand\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'sph_tpu')]\n"
         "assert not bad, bad\n"

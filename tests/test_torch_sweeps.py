@@ -6,7 +6,8 @@ CPU: the plain versions against the JAX package's all-pairs oracle
 ``speed_cap``) on the 2k dam break, on a crowded block whose cells hold
 more than 8 particles, which the capacity-free port must handle exactly,
 and on a ghost-shell box with all faces on and with the top face off,
-where the sweeps take the ghost structure as sources.
+where the sweeps take the ghost structure as sources; and the emitted-row
+transport (``SimConfig.emit_rows``) bit-identical to the default on each.
 
 CUDA (marker ``cuda``, skipped without a card): each kernel against its
 plain version.  JAX is imported inside the fixtures that need it, so the
@@ -211,7 +212,9 @@ def test_wrappers_on_cpu_take_plain_path_without_counting():
     ref = sweeps.density_plain(key, pos, cs, ce, pv)[0]
     assert torch.equal(rho, ref)
     sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv)
-    assert sweeps.LAUNCHES == {"density": 0, "force_xsph": 0}
+    sweeps.force_xsph_emit(key, pos, vel, rho, cs, ce, pv)
+    assert sweeps.LAUNCHES == {"density": 0, "force_xsph": 0,
+                               "force_xsph_emit": 0}
 
 
 def test_wrappers_reject_other_devices():
@@ -223,6 +226,9 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         sweeps.force_xsph(meta[0], meta[1], meta[2], meta[1][:, 0],
                           meta[3], meta[4], pv)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        sweeps.force_xsph_emit(meta[0], meta[1], meta[2], meta[1][:, 0],
+                               meta[3], meta[4], pv)
 
 
 def test_ghost_sources_reach_the_sweeps():
@@ -236,6 +242,44 @@ def test_ghost_sources_reach_the_sweeps():
     m = s.fluid_mask()
     assert bool((with_g[m] >= without[m]).all())
     assert int((with_g[m] > without[m] + 1.0).sum()) > 100
+
+
+STATE_FIELDS = ("pos", "vel", "acc", "density", "pressure", "foam",
+                "orig_id", "ghost", "valid")
+
+
+def run_both_transports(state, params, dims, n_sub):
+    """``n_sub`` cell substeps with and without ``emit_rows``."""
+    from sph_tpu_torch.engine.step import run_substeps
+    cfg = SimConfig(n=state.n, grid_dims=dims)
+    return [run_substeps(state, params, params.dt, n_sub,
+                         dataclasses.replace(cfg, emit_rows=emit))
+            for emit in (False, True)]
+
+
+@pytest.mark.parametrize("case", ["dam_break", "ghost_shell_open_top"])
+def test_emit_rows_bit_identical_to_gather(case):
+    """The emitted-row transport is a pure transport: 2 substeps with it
+    equal 2 without, bit for bit, as in the JAX package
+    (tests/test_pallas_engine.py:339), without ghosts and with them."""
+    state, params, dims = port_inputs(case, warm=0)
+    gather, emit = run_both_transports(state, params, dims, 2)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(emit, f), getattr(gather, f)), f
+
+
+def test_emit_rows_layout():
+    """per's columns: npos, nvel, acc, rho (the input), then six zeros."""
+    state, params, dims = port_inputs("ghost_shell_open_top", warm=0)
+    (key, pos, vel, cs, ce), _, pv, g = sweep_inputs(state, params, dims)
+    rho, _ = sweeps.density(key, pos, cs, ce, pv, g)
+    per = sweeps.force_xsph_emit(key, pos, vel, rho, cs, ce, pv, g)
+    npos, nvel, acc = sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv, g)
+    assert per.shape == (key.shape[0], sweeps.EMIT_COLS) == (state.n, 16)
+    for cols, want in (((0, 3), npos), ((3, 6), nvel), ((6, 9), acc),
+                       ((9, 10), rho[:, None]),
+                       ((10, 16), torch.zeros(state.n, 6))):
+        assert torch.equal(per[:, cols[0]:cols[1]], want), cols
 
 
 # ---------------------------------------------------------------------------
@@ -267,7 +311,8 @@ def test_kernels_match_plain_on_cuda(cuda, case):
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=POS_ATOL)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=VEL_ATOL)
     torch.testing.assert_close(got[2], want[2], rtol=ACC_RTOL, atol=ACC_ATOL)
-    assert sweeps.LAUNCHES == {"density": 1, "force_xsph": 1}
+    assert sweeps.LAUNCHES == {"density": 1, "force_xsph": 1,
+                               "force_xsph_emit": 0}
 
 
 @pytest.mark.cuda
@@ -300,9 +345,46 @@ def test_cell_engine_on_cuda_matches_cpu(cuda, case):
         order = torch.argsort(st.orig_id)
         outs[str(dev)] = {f: getattr(st, f)[order].cpu()
                           for f in ("pos", "vel", "density", "valid")}
-    assert sweeps.LAUNCHES == {"density": 20, "force_xsph": 20}
+    assert sweeps.LAUNCHES == {"density": 20, "force_xsph": 20,
+                               "force_xsph_emit": 0}
     ref, got = outs["cpu"], outs["cuda"]
     v = ref["valid"] > 0
     for f, tol in (("pos", 1e-4), ("vel", 1e-3), ("density", 1.0)):
         err = float((got[f][v] - ref[f][v]).abs().max())
         assert err < tol, (f, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_emit_kernel_matches_plain_on_cuda(cuda, case):
+    state, params, dims = port_inputs(case, device=cuda)
+    (key, pos, vel, cs, ce), _, pv, g = sweep_inputs(state, params, dims)
+    rho, _ = sweeps.density_plain(key, pos, cs, ce, pv, g)
+    sweeps.reset_launches()
+    got = sweeps.force_xsph_emit(key, pos, vel, rho, cs, ce, pv, g)
+    want = sweeps.force_xsph_emit_plain(key, pos, vel, rho, cs, ce, pv, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[:, 0:3], want[:, 0:3], rtol=0,
+                               atol=POS_ATOL)
+    torch.testing.assert_close(got[:, 3:6], want[:, 3:6], rtol=0,
+                               atol=VEL_ATOL)
+    torch.testing.assert_close(got[:, 6:9], want[:, 6:9], rtol=ACC_RTOL,
+                               atol=ACC_ATOL)
+    assert torch.equal(got[:, 9:], want[:, 9:])
+    # the same sweep as force_xsph_kernel, bit for bit
+    npos, nvel, acc = sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv, g)
+    assert torch.equal(got[:, :9], torch.cat([npos, nvel, acc], 1))
+    assert sweeps.LAUNCHES == {"density": 0, "force_xsph": 1,
+                               "force_xsph_emit": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_emit_rows_bit_identical_to_gather_on_cuda(cuda, case):
+    state, params, dims = port_inputs(case, device=cuda)
+    sweeps.reset_launches()
+    gather, emit = run_both_transports(state, params, dims, 5)
+    assert sweeps.LAUNCHES == {"density": 10, "force_xsph": 5,
+                               "force_xsph_emit": 5}
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(emit, f), getattr(gather, f)), f
