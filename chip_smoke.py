@@ -16,7 +16,11 @@ prints no result line):
              (after one plain all-pairs substep), the two all-pairs
              kernels; each timed with CUDA events beside its plain
              version, with its bound (the least time the card could take
-             for the same work) and the share of it that it reaches;
+             for the same work) and the share of it that it reaches; a
+             second launch of each force kernel must be bit-equal to the
+             first; the density kernel's source records bit-equal to the
+             plain packing; then both cell-engine force kernels on a state
+             with 2,400 rows in one cell, against the plain version;
 4. emit    — on the full ``rotated_512k`` state (after the wave and one
              plain substep), the emitted-row force kernel against its plain
              version, timed likewise, then 16 substeps with
@@ -231,6 +235,18 @@ def report(config, name, k_ms, p_ms, nbytes, ops, rows, lib_ms=None):
             "library_ms": lib_ms}
 
 
+def check_repeat(name, first, fn) -> None:
+    """A second launch on the same inputs must be bit-equal to ``first``
+    (fixed summation order, no atomics)."""
+    import torch
+    again = fn()
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 f"differ")
+
+
 def check_table(name, got, want) -> None:
     import torch
     for f, a, b in zip(got._fields, got, want):
@@ -280,22 +296,45 @@ def phase_kernels(dev, config):
     key, pos, vel, cs, ce = (r.key, r.state.pos, r.state.vel, r.cell_start,
                              r.cell_end)
     rho_p, pres_p = sweeps.density_plain(key, pos, cs, ce, pv, ghosts)
-    rho_k, pres_k = sweeps.density(key, pos, cs, ce, pv, ghosts)
+    # as the substep launches it: with the force sweep's source records
+    rho_k, pres_k, src_k = sweeps.density_sources(key, pos, vel, cs, ce, pv,
+                                                  ghosts)
     torch.cuda.synchronize()
     err_rho = check_close("density rho", rho_k, rho_p, RHO_RTOL, RHO_ATOL)
     err_pres = max_err(pres_k, pres_p)
+    if not torch.equal(src_k, sweeps.pack_sources(pos, vel, rho_k, pv,
+                                                  ghosts)):
+        raise AssertionError(f"{config} density: the source records are not "
+                             f"bit-equal to the plain packing")
+    for a, b in zip(sweeps.density(key, pos, cs, ce, pv, ghosts),
+                    (rho_k, pres_k)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{config} density: rho or pres differs "
+                                 f"with and without the source records")
     log(f"{config} density: max|rho err| {err_rho!r}  max|pres err| "
         f"{err_pres!r}  rho range [{float(rho_p[rho_p > 0].min())!r}, "
-        f"{float(rho_p.max())!r}]")
+        f"{float(rho_p.max())!r}]; source records bit-equal to the plain "
+        f"packing")
 
+    # the force kernel is timed on finished source records, as the substep
+    # hands them over; its launches below all read src_p
+    src_p = sweeps.pack_sources(pos, vel, rho_p, pv, ghosts)
     fp = sweeps.force_xsph_plain(key, pos, vel, rho_p, cs, ce, pv, ghosts)
-    fk = sweeps.force_xsph(key, pos, vel, rho_p, cs, ce, pv, ghosts)
+    fk = sweeps.force_xsph(key, pos, vel, rho_p, cs, ce, pv, ghosts, src_p)
     torch.cuda.synchronize()
     err_pos = check_close("force_xsph npos", fk[0], fp[0], 0.0, POS_ATOL)
     err_vel = check_close("force_xsph nvel", fk[1], fp[1], 0.0, VEL_ATOL)
     err_acc = check_close("force_xsph acc", fk[2], fp[2], ACC_RTOL, ACC_ATOL)
+    check_repeat(f"{config} force_xsph", fk, lambda: sweeps.force_xsph(
+        key, pos, vel, rho_p, cs, ce, pv, ghosts, src_p))
+    # rows that the forces moved further from pos + v dt damping than the
+    # kernel's queue margin allows (0.9 of it): their warps walk twice
+    off = torch.linalg.norm(
+        fp[0] - (pos + vel * (pv.dt * 0.995)), dim=1)[key < nc]
+    far = int((off > 0.9 * sweeps.FORCE_MARGIN * pv.h).sum())
     log(f"{config} force_xsph: max abs err pos {err_pos!r} vel {err_vel!r} "
-        f"acc {err_acc!r}")
+        f"acc {err_acc!r}; a second launch is bit-equal; {far} of "
+        f"{int(off.shape[0])} fluid rows beyond the queue's margin")
 
     skey, order = fluid
     n, nc8 = int(key.shape[0]), 8 * nc
@@ -309,7 +348,9 @@ def phase_kernels(dev, config):
         # skey, order, pos, vel in; spos, svel, cell_start, cell_end out
         "cell_table": ((4 + 8 + 12 + 12) * n + 24 * n + nc8, 0),
         # key, pos, cell_start, cell_end (+ ghosts) in; rho, pres out;
-        # no contrib weight in the pair math
+        # no contrib weight in the pair math.  The source records that the
+        # kernel also writes (vel in, 32 bytes a row out) are the port's own
+        # layout between its two sweeps and count for nothing here.
         "density": (16 * n + nc8 + gbytes + 8 * n,
                     OPS_TEST * cand + (OPS_DENSITY_NEAR - 1) * near_d),
         # key, pos, vel, rho, ranges (+ ghosts) in; npos, nvel, acc out
@@ -324,20 +365,92 @@ def phase_kernels(dev, config):
             time_ms(lambda: cells.cell_table_plain(skey, order, state.pos,
                                                    state.vel, nc), 50)),
         "density": (
-            time_ms(lambda: sweeps.density(key, pos, cs, ce, pv, ghosts), 50),
+            time_ms(lambda: sweeps.density_sources(key, pos, vel, cs, ce, pv,
+                                                   ghosts), 50),
             time_ms(lambda: sweeps.density_plain(key, pos, cs, ce, pv,
                                                  ghosts), 5)),
         "force_xsph": (
             time_ms(lambda: sweeps.force_xsph(key, pos, vel, rho_p, cs, ce,
-                                              pv, ghosts), 50),
+                                              pv, ghosts, src_p), 50),
             time_ms(lambda: sweeps.force_xsph_plain(key, pos, vel, rho_p, cs,
                                                     ce, pv, ghosts), 5)),
     }
+    log(f"{config} density without the source records: "
+        f"{time_ms(lambda: sweeps.density(key, pos, cs, ce, pv, ghosts), 50)!r}"
+        f" ms")
     errs = {"cell_table": 0.0, "density": err_rho,
             "force_xsph": max(err_pos, err_vel, err_acc)}
     return {name: {"max_abs_err": errs[name],
                    **report(config, name, *times[name], *work[name], n)}
             for name in times}
+
+
+CROWD_ROWS = 2400            # rows in the one crowded cell
+
+
+def phase_crowded(dev):
+    """Both cell-engine force kernels on a state with ``CROWD_ROWS`` rows in
+    one cell of an 8 x 8 x 8 grid (2 rows in every cell of its lower three
+    layers, the x edges included): far more than the force kernel's
+    32-entry queue holds, so its warps empty their queues many times on
+    the way and walk twice; the port has no cell capacity to fall back on.  Held against the plain version; the density is made from a seed, within 1%
+    of rest, so that the forces stay of the size the tolerances were set
+    for."""
+    import numpy as np
+    import torch
+    from sph_tpu_torch.core import state as S
+    from sph_tpu_torch.core.params import (FluidParams, SimConfig,
+                                           compute_grid_dims)
+    from sph_tpu_torch.neighbors import cells, sweeps
+
+    h, half = 0.4, (1.2, 1.2, 1.2)
+    rng = np.random.default_rng(13)
+    idx = np.asarray([(x, y, z) for y in range(3) for z in range(8)
+                      for x in range(8)], np.float32).repeat(2, axis=0)
+    idx = np.concatenate([idx, np.tile(np.asarray([[4, 1, 4]], np.float32),
+                                       (CROWD_ROWS, 1))])
+    gmin = -(np.asarray(half, np.float32) + np.float32(h))
+    pos = (gmin + (idx + 0.05 + 0.9 * rng.random(idx.shape)) * h).astype(
+        np.float32)
+    n = pos.shape[0]
+    spawn = S.SpawnResult(
+        pos=pos, vel=(0.1 * rng.standard_normal((n, 3))).astype(np.float32),
+        ghost=np.zeros((n,), np.int32), face=np.full((n,), -1, np.int32),
+        color_group=np.zeros((n,), np.int32), count=n)
+    state = S.state_from_spawn(spawn, device=dev)
+    params = FluidParams.default(
+        device=dev, h=h, box_half=np.asarray(half, np.float32)).derive_mass()
+    dims = compute_grid_dims(0, half, (0, 0, 0), h)
+    r = cells.build(state, params, dims)
+    pv, ghosts = sweeps.prepare(state, params, params.dt,
+                                SimConfig(n=state.n, grid_dims=dims))
+    fullest = int((r.cell_end - r.cell_start).max())
+    if dims != (8, 8, 8) or fullest != CROWD_ROWS + 2:
+        raise AssertionError(f"crowded cell: grid {dims}, fullest cell "
+                             f"{fullest} rows")
+    rows = int(r.key.shape[0])            # the state pads past the spawn
+    rho = torch.where(
+        r.key < pv.num_cells,
+        torch.as_tensor((1000.0 * (1.0 + 0.01 * rng.random(rows))).astype(
+            np.float32), device=dev), torch.zeros((), device=dev))
+    args = (r.key, r.state.pos, r.state.vel, rho, r.cell_start, r.cell_end,
+            pv, ghosts)
+    want = sweeps.force_xsph_plain(*args)
+    got = sweeps.force_xsph(*args)
+    per = sweeps.force_xsph_emit(*args)
+    torch.cuda.synchronize()
+    errs = [check_close("crowded force_xsph npos", got[0], want[0], 0.0,
+                        POS_ATOL),
+            check_close("crowded force_xsph nvel", got[1], want[1], 0.0,
+                        VEL_ATOL),
+            check_close("crowded force_xsph acc", got[2], want[2], ACC_RTOL,
+                        ACC_ATOL)]
+    if not torch.equal(per[:, :9], torch.cat(got, 1)):
+        raise AssertionError("crowded cell: force_xsph_emit is not bit-equal "
+                             "to force_xsph_kernel")
+    log(f"crowded cell ({n} fluid rows, {fullest} in one cell): force_xsph "
+        f"max abs err pos {errs[0]!r} vel {errs[1]!r} acc {errs[2]!r}; "
+        f"force_xsph_emit bit-equal to it")
 
 
 def phase_kernels_brute(dev, config):
@@ -375,8 +488,10 @@ def phase_kernels_brute(dev, config):
     err_pos = check_close("brute_force npos", fk[0], fp[0], 0.0, POS_ATOL)
     err_vel = check_close("brute_force nvel", fk[1], fp[1], 0.0, VEL_ATOL)
     err_acc = check_close("brute_force acc", fk[2], fp[2], ACC_RTOL, ACC_ATOL)
+    check_repeat(f"{config} brute_force", fk,
+                 lambda: BK.force(pos, vel, rho, pres, cf, pv))
     log(f"{config} brute_force: max abs err pos {err_pos!r} vel {err_vel!r} "
-        f"acc {err_acc!r}")
+        f"acc {err_acc!r}; a second launch is bit-equal")
 
     tested, near_d, near_f, near_x = brute_pairs(pos, fp[0], rho, cf, pv)
     log(f"{config} all pairs: {tested} pairs tested per pass, {near_d} "
@@ -407,7 +522,8 @@ def phase_kernels_brute(dev, config):
 def phase_emit(dev, config):
     """The emitted-row force kernel against its plain version at full
     ``config`` after the wave and one plain substep, timed beside
-    ``force_xsph_kernel`` and ``torch.cat`` of its four outputs; then 16
+    ``force_xsph_kernel`` (and ``torch.cat`` of its four outputs, the
+    packing alone); then 16
     substeps with ``emit_rows`` and 16 without from one state, which must
     agree bit for bit."""
     import dataclasses
@@ -436,8 +552,11 @@ def phase_emit(dev, config):
                              r.cell_end)
     rho, _ = sweeps.density_plain(key, pos, cs, ce, pv, ghosts)
     args = (key, pos, vel, rho, cs, ce, pv, ghosts)
+    # the kernels are timed on finished source records, as the substep
+    # hands them over
+    kargs = (*args, sweeps.pack_sources(pos, vel, rho, pv, ghosts))
     want = sweeps.force_xsph_emit_plain(*args)
-    got = sweeps.force_xsph_emit(*args)
+    got = sweeps.force_xsph_emit(*kargs)
     torch.cuda.synchronize()
     errs = [check_close("force_xsph_emit npos", got[:, 0:3], want[:, 0:3],
                         0.0, POS_ATOL),
@@ -448,12 +567,15 @@ def phase_emit(dev, config):
     if not torch.equal(got[:, 9:], want[:, 9:]):
         raise AssertionError("force_xsph_emit: rho or the zero columns "
                              "differ from the plain version")
-    parts = sweeps.force_xsph(*args)
+    parts = sweeps.force_xsph(*kargs)
     if not torch.equal(got[:, :9], torch.cat(parts, 1)):
         raise AssertionError("force_xsph_emit: not bit-equal to "
                              "force_xsph_kernel")
+    check_repeat(f"{config} force_xsph_emit", (got,),
+                 lambda: (sweeps.force_xsph_emit(*kargs),))
     log(f"{config} force_xsph_emit: max abs err pos {errs[0]!r} vel "
-        f"{errs[1]!r} acc {errs[2]!r}; bit-equal to force_xsph_kernel")
+        f"{errs[1]!r} acc {errs[2]!r}; bit-equal to force_xsph_kernel; a "
+        f"second launch is bit-equal")
 
     n, nc8 = int(key.shape[0]), 8 * cfg.num_cells
     gbytes = 0 if ghosts is None else 12 * ghosts.count + nc8
@@ -462,16 +584,19 @@ def phase_emit(dev, config):
     log(f"{config} cell sweeps: {cand} candidates tested by the fluid rows, "
         f"{near_f} within h (force), {near_x} (XSPH)")
     col = rho[:, None]
-    times = (time_ms(lambda: sweeps.force_xsph_emit(*args), 50),
+    times = (time_ms(lambda: sweeps.force_xsph_emit(*kargs), 50),
              time_ms(lambda: sweeps.force_xsph_emit_plain(*args), 5))
-    lib_ms = time_ms(lambda: torch.cat([*parts, col], 1), 50)
+    # no single PyTorch call computes the sweep; torch.cat of its four
+    # finished outputs is the packing alone, logged for scale
+    log(f"{config} packing alone (torch.cat of npos, nvel, acc, rho): "
+        f"{time_ms(lambda: torch.cat([*parts, col], 1), 50)!r} ms")
     log(f"{config} force_xsph (gather transport) kernel: "
-        f"{time_ms(lambda: sweeps.force_xsph(*args), 50)!r} ms")
+        f"{time_ms(lambda: sweeps.force_xsph(*kargs), 50)!r} ms")
     # key, pos, vel, rho, ranges (+ ghosts) in; per [n, 16] out
     rec = {"max_abs_err": max(errs), **report(
         config, "force_xsph_emit", *times, 32 * n + nc8 + gbytes + 64 * n,
         2 * OPS_TEST * cand + OPS_FORCE_NEAR * near_f
-        + OPS_XSPH_NEAR * near_x, n, lib_ms)}
+        + OPS_XSPH_NEAR * near_x, n)}
 
     runs = {}
     for emit in (True, False):
@@ -748,6 +873,7 @@ def main() -> int:
                 "ghost_1m": phase_kernels(dev, "ghost_1m"),
                 "dam_break_8k": phase_kernels_brute(dev, "dam_break_8k"),
                 "rotated_512k": phase_emit(dev, "rotated_512k")}
+    phase_crowded(dev)
     phase_small(dev)
     counts = {config: phase_main(dev, config) for config in CONFIGS}
     measured["micro"], counts["micro"] = phase_micro(dev)

@@ -5,10 +5,20 @@
 // pos / vel / npos / nvel / acc [n][3] float32, rho / pres [n] float32,
 // cell_start / cell_end [num_cells] int32.  The ghost structure:
 // ghost_pos [g][3] float32 (contributing ghosts sorted by the same key),
-// ghost_start / ghost_end [num_cells] int32; with has_ghosts 0 the three
-// pointers are not read and may be null.  The launch goes on `stream`
-// (a cudaStream_t) and neither function synchronises or allocates.
-// Each returns cudaGetLastError() after its launch: 0 means launched.
+// ghost_start / ghost_end [num_cells] int32; with has_ghosts 0 the
+// pointers are not read and may be null.
+//
+// The source records, src [2][src_rows][4] float32, 16-byte aligned, are
+// what the force sweep reads of a source: src[0][j] = (x, y, z, rho) and
+// src[1][j] = (vx, vy, vz, mass / max(rho, 1e-12)).  Rows [0, n) are the
+// sorted rows; rows [n, n + g) are the ghost structure's rows in its order
+// (rho0, v = 0), so src_rows >= n + g.  sph_density writes rows [0, n) when
+// given vel and src (both may be null: then it writes none);
+// the force sweeps read all of them.
+//
+// The launch goes on `stream` (a cudaStream_t) and no function synchronises
+// or allocates.  Each returns cudaGetLastError() after its launch: 0 means
+// launched.
 #pragma once
 
 #ifdef __cplusplus
@@ -29,24 +39,23 @@ typedef struct {
   int nx, ny, nz;
 } SphSweepParams;
 
-int sph_density(const int* key, const float* pos, const int* cell_start,
-                const int* cell_end, int n, const float* ghost_pos,
-                const int* ghost_start, const int* ghost_end, int has_ghosts,
+int sph_density(const int* key, const float* pos, const float* vel,
+                const int* cell_start, const int* cell_end, int n,
+                const float* ghost_pos, const int* ghost_start,
+                const int* ghost_end, int has_ghosts,
                 const SphSweepParams* params, float* rho, float* pres,
-                void* stream);
+                float* src, int src_rows, void* stream);
 
-int sph_force_xsph(const int* key, const float* pos, const float* vel,
-                   const float* rho, const int* cell_start,
-                   const int* cell_end, int n, const float* ghost_pos,
+int sph_force_xsph(const int* key, const float* src, int src_rows,
+                   const int* cell_start, const int* cell_end, int n,
                    const int* ghost_start, const int* ghost_end,
                    int has_ghosts, const SphSweepParams* params, float* npos,
                    float* nvel, float* acc, void* stream);
 
 // The same sweep, its outputs packed with rho into per [n][16] float32:
 // cols 0:3 npos, 3:6 nvel, 6:9 acc, 9 rho (the input), 10:16 zero.
-int sph_force_xsph_emit(const int* key, const float* pos, const float* vel,
-                        const float* rho, const int* cell_start,
-                        const int* cell_end, int n, const float* ghost_pos,
+int sph_force_xsph_emit(const int* key, const float* src, int src_rows,
+                        const int* cell_start, const int* cell_end, int n,
                         const int* ghost_start, const int* ghost_end,
                         int has_ghosts, const SphSweepParams* params,
                         float* per, void* stream);

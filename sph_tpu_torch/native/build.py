@@ -100,13 +100,12 @@ def library() -> ctypes.CDLL:
     prm = ctypes.POINTER(SweepParamsC)
     lib.sph_cell_table.argtypes = [p, p, p, p, i, i, p, p, p, p, p]
     lib.sph_cell_table.restype = i
-    lib.sph_density.argtypes = [p, p, p, p, i, p, p, p, i, prm, p, p, p]
+    lib.sph_density.argtypes = [p, p, p, p, p, i, p, p, p, i, prm, p, p, p, i,
+                                p]
     lib.sph_density.restype = i
-    lib.sph_force_xsph.argtypes = [p, p, p, p, p, p, i, p, p, p, i, prm, p,
-                                   p, p, p]
+    lib.sph_force_xsph.argtypes = [p, p, i, p, p, i, p, p, i, prm, p, p, p, p]
     lib.sph_force_xsph.restype = i
-    lib.sph_force_xsph_emit.argtypes = [p, p, p, p, p, p, i, p, p, p, i, prm,
-                                        p, p]
+    lib.sph_force_xsph_emit.argtypes = [p, p, i, p, p, i, p, p, i, prm, p, p]
     lib.sph_force_xsph_emit.restype = i
     lib.sph_brute_density.argtypes = [p, p, i, prm, p, p]
     lib.sph_brute_density.restype = i

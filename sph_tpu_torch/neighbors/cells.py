@@ -155,20 +155,36 @@ class GhostRows(NamedTuple):
     pos: torch.Tensor          # [G,3] sorted
     ghost_start: torch.Tensor  # [num_cells] i32
     ghost_end: torch.Tensor    # [num_cells] i32
+    records: torch.Tensor      # [2,G,4] the force sweep's source records
 
     @property
     def count(self) -> int:
         return self.pos.shape[0]
 
 
+def ghost_records(pos: torch.Tensor, rho0, mass) -> torch.Tensor:
+    """The force sweep's source records of ghost sources at ``pos`` [G,3]
+    (``sweeps.pack_sources`` has the layout): ``[0] = (x, y, z, rho0)``,
+    ``[1] = (0, 0, 0, mass / max(rho0, 1e-12))`` -- a ghost has rho0, so
+    P = 0, and v = 0 (``physics/brute_force.py``)."""
+    rec = torch.zeros(2, pos.shape[0], 4, dtype=torch.float32,
+                      device=pos.device)
+    rho0 = torch.as_tensor(rho0, dtype=torch.float32, device=pos.device)
+    rec[0, :, :3] = pos
+    rec[0, :, 3] = rho0
+    rec[1, :, 3] = mass / torch.clamp_min(rho0, 1e-12)
+    return rec
+
+
 def build_ghosts(state: ParticleState, params: FluidParams,
                  dims: Tuple[int, int, int]) -> GhostRows:
     """The ghost structure (counterpart of ``planes.build_ghost_tables``):
     the rows that are valid, ghosts and on an active face, with the same
-    y-major key, a stable sort and the same cell table.  Ghosts never move
-    and face activation is fixed within a run, so this is built once per
-    ``run_substeps``."""
+    y-major key, a stable sort and the same cell table, and their source
+    records for the force sweep.  Ghosts never move and face activation is
+    fixed within a run, so this is built once per ``run_substeps``."""
     nx, ny, nz = dims
     skey, order = ghost_sort(state, params, dims)
     tbl = cell_table(skey, order, state.pos, None, nx * ny * nz)
-    return GhostRows(tbl.pos, tbl.cell_start, tbl.cell_end)
+    return GhostRows(tbl.pos, tbl.cell_start, tbl.cell_end,
+                     ghost_records(tbl.pos, params.rest_density, params.mass))

@@ -11,6 +11,11 @@
    into one ``[N, 16]`` row buffer (the emitted-row transport of
    ``SimConfig.emit_rows``, ``pallas_sweeps.py:763``).
 
+The force sweep's kernel reads each source as two 16-byte **source
+records** (:func:`pack_sources`): the density kernel writes them for the
+sorted rows (:func:`density_sources`), the ghost structure carries its own
+(``cells.GhostRows.records``).
+
 Each sweep is a CUDA kernel (``csrc/sweeps.cu``) with a plain torch
 version of the same function beside it.  The wrapper picks by the
 device of its tensors: CPU tensors take the plain version, CUDA tensors
@@ -42,6 +47,13 @@ _PLAIN_CHUNK = 8192
 # Kernel launches since the last reset_launches() — only the CUDA path
 # counts, and only where it launches.
 LAUNCHES = {"density": 0, "force_xsph": 0, "force_xsph_emit": 0}
+
+# The force kernel's queue (kQueue and kMarginFrac in csrc/sweeps.cu): its
+# entries a row, and its margin around the row's predicted position in h.
+# The kernel's results do not depend on them; the scripts that count what
+# the queue will meet do (app/neighbor_counts.py, chip_smoke.py).
+FORCE_QUEUE = 32
+FORCE_MARGIN = 0.05
 
 # Columns of force_xsph_emit's rows, as the TPU's emitted rows
 # (pallas_sweeps.py:775): npx npy npz vx vy vz ax ay az rho, then zeros.
@@ -163,6 +175,35 @@ def density_plain(key, pos, cell_start, cell_end, pv: SweepParams,
         rho[r] = rr
         pres[r] = torch.clamp_min(pv.gas_k * (rr - pv.rho0), 0.0)
     return rho, pres
+
+
+def _new_sources(n: int, ghosts: Optional[GhostRows], device):
+    """A source-record array ``[2, n + G, 4]`` with the ghosts' rows filled
+    in and rows ``[0, n)`` still to be written."""
+    g = 0 if ghosts is None else ghosts.count
+    src = torch.empty(2, n + g, 4, dtype=torch.float32, device=device)
+    if g:
+        src[:, n:] = ghosts.records
+    return src
+
+
+def pack_sources(pos, vel, rho, pv: SweepParams,
+                 ghosts: Optional[GhostRows] = None) -> torch.Tensor:
+    """The force kernel's source records, ``[2, N + G, 4]`` float32:
+    ``[0, j] = (x, y, z, rho)`` and ``[1, j] = (vx, vy, vz, mass /
+    max(rho, 1e-12))``; rows ``[0, N)`` are the sorted rows, rows
+    ``[N, N + G)`` the ghost structure's (``GhostRows.records``).  Plain
+    torch version of what ``density_kernel`` packs."""
+    n = pos.shape[0]
+    src = _new_sources(n, ghosts, pos.device)
+    src[0, :n, :3] = pos
+    src[0, :n, 3] = rho
+    src[1, :n, :3] = vel
+    # a true division, as the kernel's (float / tensor would multiply by
+    # the reciprocal)
+    src[1, :n, 3] = torch.div(torch.full_like(rho, pv.mass),
+                              torch.clamp_min(rho, 1e-12))
+    return src
 
 
 def _norm(v):
@@ -293,10 +334,13 @@ def _check_rows(key, pos, cell_start, cell_end, pv: SweepParams,
               (pv.num_cells,), dev)
         check("ghost_end", ghosts.ghost_end, torch.int32, (pv.num_cells,),
               dev)
+        check("ghost records", ghosts.records, torch.float32,
+              (2, ghosts.count, 4), dev)
 
 
 def _ghost_args(ghosts: Optional[GhostRows]):
-    """The kernels' ghost arguments: pos, start, end pointers and the flag."""
+    """The kernels' ghost arguments: pos, start, end pointers and the flag
+    (the force kernels take all but pos, which is in the source records)."""
     if ghosts is None:
         return None, None, None, 0
     return (ghosts.pos.data_ptr(), ghosts.ghost_start.data_ptr(),
@@ -308,44 +352,87 @@ def c_params(pv: SweepParams) -> build.SweepParamsC:
     return build.SweepParamsC(*dataclasses.astuple(pv))
 
 
-def density(key, pos, cell_start, cell_end, pv: SweepParams,
-            ghosts: Optional[GhostRows] = None):
-    """(rho, pres) [N] of the sorted rows; non-fluid rows get 0."""
-    if key.device.type == "cpu":
-        return density_plain(key, pos, cell_start, cell_end, pv, ghosts)
-    _check_rows(key, pos, cell_start, cell_end, pv, ghosts)
+def _launch_density(key, pos, vel, cell_start, cell_end, pv: SweepParams,
+                    ghosts: Optional[GhostRows], src):
     lib = build.library()
     n = key.shape[0]
     rho = torch.empty(n, dtype=torch.float32, device=key.device)
     pres = torch.empty_like(rho)
     prm = c_params(pv)
     err = lib.sph_density(
-        key.data_ptr(), pos.data_ptr(), cell_start.data_ptr(),
+        key.data_ptr(), pos.data_ptr(),
+        None if vel is None else vel.data_ptr(), cell_start.data_ptr(),
         cell_end.data_ptr(), n, *_ghost_args(ghosts), ctypes.byref(prm),
         rho.data_ptr(), pres.data_ptr(),
+        None if src is None else src.data_ptr(),
+        0 if src is None else src.shape[1],
         torch.cuda.current_stream(key.device).cuda_stream)
     build.launched(LAUNCHES, "density", err)
     return rho, pres
 
 
-def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
-               ghosts: Optional[GhostRows] = None):
-    """(npos, nvel, acc) [N,3] of the sorted rows; non-fluid rows pass
-    through (npos = pos, nvel = vel, acc = 0)."""
+def density(key, pos, cell_start, cell_end, pv: SweepParams,
+            ghosts: Optional[GhostRows] = None):
+    """(rho, pres) [N] of the sorted rows; non-fluid rows get 0."""
     if key.device.type == "cpu":
-        return force_xsph_plain(key, pos, vel, rho, cell_start, cell_end, pv,
-                                ghosts)
+        return density_plain(key, pos, cell_start, cell_end, pv, ghosts)
+    _check_rows(key, pos, cell_start, cell_end, pv, ghosts)
+    return _launch_density(key, pos, None, cell_start, cell_end, pv, ghosts,
+                           None)
+
+
+def density_sources(key, pos, vel, cell_start, cell_end, pv: SweepParams,
+                    ghosts: Optional[GhostRows] = None):
+    """(rho, pres, sources): :func:`density`, and the force sweep's source
+    records of these rows and ``ghosts`` (:func:`pack_sources`), which the
+    same kernel launch writes for the sorted rows."""
+    if key.device.type == "cpu":
+        rho, pres = density_plain(key, pos, cell_start, cell_end, pv, ghosts)
+        return rho, pres, pack_sources(pos, vel, rho, pv, ghosts)
+    n = key.shape[0]
+    _check_rows(key, pos, cell_start, cell_end, pv, ghosts,
+                vel=(vel, (n, 3)))
+    src = _new_sources(n, ghosts, key.device)
+    rho, pres = _launch_density(key, pos, vel, cell_start, cell_end, pv,
+                                ghosts, src)
+    return rho, pres, src
+
+
+def _force_sources(key, pos, vel, rho, cell_start, cell_end,
+                   pv: SweepParams, ghosts: Optional[GhostRows], sources):
+    """Check the force kernels' inputs; the source records, packed here
+    when the caller has none from :func:`density_sources`."""
     n = key.shape[0]
     _check_rows(key, pos, cell_start, cell_end, pv, ghosts,
                 vel=(vel, (n, 3)), rho=(rho, (n,)))
+    if sources is None:
+        return pack_sources(pos, vel, rho, pv, ghosts)
+    g = 0 if ghosts is None else ghosts.count
+    build.check_tensor("sources", sources, torch.float32, (2, n + g, 4),
+                       key.device)
+    return sources
+
+
+def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
+               ghosts: Optional[GhostRows] = None,
+               sources: Optional[torch.Tensor] = None):
+    """(npos, nvel, acc) [N,3] of the sorted rows; non-fluid rows pass
+    through (npos = pos, nvel = vel, acc = 0).  ``sources`` are the source
+    records of ``pos``, ``vel``, ``rho`` and ``ghosts`` when the caller has
+    them (:func:`density_sources`); the kernel reads only those."""
+    if key.device.type == "cpu":
+        return force_xsph_plain(key, pos, vel, rho, cell_start, cell_end, pv,
+                                ghosts)
+    src = _force_sources(key, pos, vel, rho, cell_start, cell_end, pv, ghosts,
+                         sources)
     lib = build.library()
     npos = torch.empty_like(pos)
     nvel = torch.empty_like(vel)
     acc = torch.empty_like(pos)
     prm = c_params(pv)
     err = lib.sph_force_xsph(
-        key.data_ptr(), pos.data_ptr(), vel.data_ptr(), rho.data_ptr(),
-        cell_start.data_ptr(), cell_end.data_ptr(), n, *_ghost_args(ghosts),
+        key.data_ptr(), src.data_ptr(), src.shape[1], cell_start.data_ptr(),
+        cell_end.data_ptr(), key.shape[0], *_ghost_args(ghosts)[1:],
         ctypes.byref(prm), npos.data_ptr(), nvel.data_ptr(), acc.data_ptr(),
         torch.cuda.current_stream(key.device).cuda_stream)
     build.launched(LAUNCHES, "force_xsph", err)
@@ -353,23 +440,23 @@ def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
 
 
 def force_xsph_emit(key, pos, vel, rho, cell_start, cell_end,
-                    pv: SweepParams, ghosts: Optional[GhostRows] = None):
+                    pv: SweepParams, ghosts: Optional[GhostRows] = None,
+                    sources: Optional[torch.Tensor] = None):
     """per [N, 16] of the sorted rows: cols 0:3 npos, 3:6 nvel, 6:9 acc
     (as ``force_xsph``), 9 rho (the input), 10:16 zero."""
     if key.device.type == "cpu":
         return force_xsph_emit_plain(key, pos, vel, rho, cell_start,
                                      cell_end, pv, ghosts)
-    n = key.shape[0]
-    _check_rows(key, pos, cell_start, cell_end, pv, ghosts,
-                vel=(vel, (n, 3)), rho=(rho, (n,)))
+    src = _force_sources(key, pos, vel, rho, cell_start, cell_end, pv, ghosts,
+                         sources)
     lib = build.library()
+    n = key.shape[0]
     per = torch.empty(n, EMIT_COLS, dtype=torch.float32, device=key.device)
     prm = c_params(pv)
     err = lib.sph_force_xsph_emit(
-        key.data_ptr(), pos.data_ptr(), vel.data_ptr(), rho.data_ptr(),
-        cell_start.data_ptr(), cell_end.data_ptr(), n, *_ghost_args(ghosts),
-        ctypes.byref(prm), per.data_ptr(),
-        torch.cuda.current_stream(key.device).cuda_stream)
+        key.data_ptr(), src.data_ptr(), src.shape[1], cell_start.data_ptr(),
+        cell_end.data_ptr(), n, *_ghost_args(ghosts)[1:], ctypes.byref(prm),
+        per.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
     build.launched(LAUNCHES, "force_xsph_emit", err)
     return per
 
@@ -436,15 +523,15 @@ def substep(state: ParticleState, params: FluidParams, dt,
     pv, ghosts = aux
     rows = cells.build(state, params, config.grid_dims)
     s = rows.state
-    rho, pres = density(rows.key, s.pos, rows.cell_start, rows.cell_end, pv,
-                        ghosts)
+    rho, pres, src = density_sources(rows.key, s.pos, s.vel, rows.cell_start,
+                                     rows.cell_end, pv, ghosts)
     if config.emit_rows:
         per = force_xsph_emit(rows.key, s.pos, s.vel, rho, rows.cell_start,
-                              rows.cell_end, pv, ghosts)
+                              rows.cell_end, pv, ghosts, src)
         npos, nvel, acc, rho = per[:, 0:3], per[:, 3:6], per[:, 6:9], per[:, 9]
     else:
         npos, nvel, acc = force_xsph(rows.key, s.pos, s.vel, rho,
                                      rows.cell_start, rows.cell_end, pv,
-                                     ghosts)
+                                     ghosts, src)
     return reassemble(s, rho, pres, npos, nvel, acc, params,
                       ghosts=ghosts is not None)

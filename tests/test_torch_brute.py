@@ -39,7 +39,7 @@ from sph_tpu_torch.physics import brute_kernels as BK
 
 # tolerances of the plain versions against the Pallas kernels and of the
 # kernels against the plain versions (chip_smoke.py): float32 summation
-# order differs (lane-reduction tree, 8 warp slices, row chunks)
+# order differs (lane-reduction tree, warp slices, row chunks)
 RHO_RTOL, RHO_ATOL = 1e-5, 1e-2       # tests/test_solver_equivalence.py:49
 POS_ATOL = 1e-5
 VEL_ATOL = 1e-3
@@ -370,6 +370,104 @@ def test_engine_on_cuda_matches_cpu(cuda, case):
     for f, tol in (("pos", POS_TOL), ("vel", VEL_TOL), ("density", RHO_TOL)):
         err = float((got[f] - ref[f]).abs().max())
         assert err < tol, (f, err)
+
+
+# ---------------------------------------------------------------------------
+# inputs built to break the force kernel's tiling: dead sources, two
+# coincident rows, row counts that fill no tile
+# ---------------------------------------------------------------------------
+
+DEAD_RHO, DEAD_CONTRIB, TWINS = (3, 7), (5,), (10, 11)
+
+
+def tiling_inputs(n, device="cpu", seed=21):
+    """(pos, vel, rho, pres, contrib, pv) of ``n`` rows scattered so that
+    each has dozens of neighbors, densities within 5% of rest.  From 16
+    rows up: rows 3 and 7 have rho = 0, row 5 has contrib = 0 (dead
+    sources all three), and row 11 lies exactly on row 10."""
+    from sph_tpu_torch.core.params import FluidParams
+    rng = np.random.default_rng(seed)
+    side = 0.28 * max(1.0, (n / 12.0) ** (1.0 / 3.0))
+    pos = (side * rng.random((n, 3))).astype(np.float32)
+    vel = (0.2 * rng.standard_normal((n, 3))).astype(np.float32)
+    rho = (1000.0 * (1.0 + 0.05 * rng.random(n))).astype(np.float32)
+    contrib = np.ones(n, np.float32)
+    if n >= 16:
+        rho[list(DEAD_RHO)] = 0.0
+        contrib[list(DEAD_CONTRIB)] = 0.0
+        pos[TWINS[1]] = pos[TWINS[0]]
+    params = FluidParams.default(device=device).derive_mass()
+    pv = make_pvec(params, params.dt, (0, 0, 0))
+    pres = np.maximum(pv.gas_k * (rho - pv.rho0), 0.0).astype(np.float32)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (pos, vel, rho, pres, contrib)) + (pv,)
+
+
+TILING_N = [1, 31, 65, 100, 777]     # 64 rows to a block, 32 to a tile
+
+
+@pytest.mark.parametrize("n", TILING_N)
+def test_force_plain_on_tiling_inputs(n):
+    """The plain version on the inputs the CUDA cases use: finite, a lone
+    row falls freely, and a dead source's position and velocity are never
+    read (moving it changes no other row, bit for bit)."""
+    pos, vel, rho, pres, contrib, pv = tiling_inputs(n)
+    out = BK.force_plain(pos, vel, rho, pres, contrib, pv)
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    if n == 1:
+        g = torch.tensor([pv.gx, pv.gy, pv.gz])
+        torch.testing.assert_close(out[2][0], g, rtol=1e-6, atol=0)
+        return
+    live = (rho > 0) & (contrib > 0)
+    assert int((~live).sum()) == (3 if n >= 16 else 0)
+    if n < 16:
+        return
+    pos2, vel2 = pos.clone(), vel.clone()
+    pos2[~live] += 100.0
+    vel2[~live] = 7.0
+    moved = BK.force_plain(pos2, vel2, rho, pres, contrib, pv)
+    for a, b in zip(out, moved):
+        assert torch.equal(a[live], b[live])
+
+
+def test_force_plain_counts_a_coincident_row():
+    """Two distinct rows at one position are neighbors at r = 0: no
+    pressure or viscosity gradient, but the twin weighs in the XSPH sum,
+    so taking it away changes the row's velocity.  The self pair is
+    excluded by row index, not by distance."""
+    pos, vel, rho, pres, contrib, pv = tiling_inputs(100)
+    with_twin = BK.force_plain(pos, vel, rho, pres, contrib, pv)
+    contrib2 = contrib.clone()
+    contrib2[TWINS[1]] = 0.0
+    without = BK.force_plain(pos, vel, rho, pres, contrib2, pv)
+    assert bool(torch.isfinite(with_twin[1][TWINS[0]]).all())
+    assert not torch.equal(with_twin[1][TWINS[0]], without[1][TWINS[0]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", TILING_N)
+def test_force_kernel_on_tiling_inputs_on_cuda(cuda, n):
+    """The force kernel against its plain version with dead sources, a
+    coincident pair and row counts that fill no block or tile; a second
+    launch is bit-equal to the first."""
+    pos, vel, rho, pres, contrib, pv = tiling_inputs(n, device=cuda)
+    want = BK.force_plain(pos, vel, rho, pres, contrib, pv)
+    BK.reset_launches()
+    got = BK.force(pos, vel, rho, pres, contrib, pv)
+    again = BK.force(pos, vel, rho, pres, contrib, pv)
+    torch.cuda.synchronize()
+    assert BK.LAUNCHES["brute_force"] == 2
+    # a row with rho = 0 divides by 1e-12: its own outputs are of the order
+    # of 1e12 in both versions and the engine discards them (such a row is
+    # no fluid row), so the absolute tolerances hold the other rows
+    m = rho > 0
+    torch.testing.assert_close(got[0][m], want[0][m], rtol=0, atol=POS_ATOL)
+    torch.testing.assert_close(got[1][m], want[1][m], rtol=0, atol=VEL_ATOL)
+    torch.testing.assert_close(got[2][m], want[2][m], rtol=ACC_RTOL,
+                               atol=ACC_ATOL)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -171,6 +171,26 @@ def test_ghost_structure_matches_jax_ghost_sort(faces):
         np.bincount(key, minlength=int(np.prod(dims))))
 
 
+@pytest.mark.parametrize("faces", list(ACTIVE))
+def test_ghost_records_are_the_oracles_ghost_sources(faces):
+    """The ghost structure's source records for the force sweep: its sorted
+    positions with the ghost source of the JAX all-pairs oracle (rho0, so
+    P = 0 by the EOS; v = 0; mass / rho0), ``physics/brute_force.py``."""
+    js, jp, ts, tp, dims = both(ACTIVE[faces])
+    ghosts = cells.build_ghosts(ts, tp, dims)
+    rec = ghosts.records
+    assert rec.shape == (2, ghosts.count, 4) and rec.dtype == torch.float32
+    assert rec.is_contiguous()
+    assert torch.equal(rec[0, :, :3], ghosts.pos)
+    rho0 = np.float32(jp.rest_density)
+    np.testing.assert_array_equal(rec[0, :, 3].numpy(), rho0)
+    assert float(np.maximum(np.float32(jp.gas_constant) * (rho0 - rho0),
+                            0)) == 0.0
+    np.testing.assert_array_equal(rec[1, :, :3].numpy(), 0.0)
+    np.testing.assert_array_equal(rec[1, :, 3].numpy(),
+                                  np.float32(jp.mass) / rho0)
+
+
 # ---------------------------------------------------------------------------
 # the kernel against the plain version (CUDA only)
 # ---------------------------------------------------------------------------

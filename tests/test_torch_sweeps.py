@@ -6,8 +6,10 @@ CPU: the plain versions against the JAX package's all-pairs oracle
 ``speed_cap``) on the 2k dam break, on a crowded block whose cells hold
 more than 8 particles, which the capacity-free port must handle exactly,
 and on a ghost-shell box with all faces on and with the top face off,
-where the sweeps take the ghost structure as sources; and the emitted-row
-transport (``SimConfig.emit_rows``) bit-identical to the default on each.
+where the sweeps take the ghost structure as sources; the emitted-row
+transport (``SimConfig.emit_rows``) bit-identical to the default on each;
+and the force kernel's source records (``pack_sources``,
+``density_sources``) against the same oracle.
 
 CUDA (marker ``cuda``, skipped without a card): each kernel against its
 plain version.  JAX is imported inside the fixtures that need it, so the
@@ -282,6 +284,54 @@ def test_emit_rows_layout():
         assert torch.equal(per[:, cols[0]:cols[1]], want), cols
 
 
+@pytest.mark.parametrize("case", list(CASES))
+def test_density_sources_match_density_and_oracle(oracle, case):
+    """``density_sources`` is ``density`` plus the force sweep's source
+    records: the same rho and pres bit for bit, the records' rho column
+    against the JAX oracle's density (the density tolerance), m / rho from
+    it, and pos and vel carried exactly."""
+    state, params, dims, want = oracle[case]
+    (key, pos, vel, cs, ce), s, pv, ghosts = sweep_inputs(state, params,
+                                                          dims)
+    rho, pres, src = sweeps.density_sources(key, pos, vel, cs, ce, pv, ghosts)
+    ref = sweeps.density(key, pos, cs, ce, pv, ghosts)
+    assert torch.equal(rho, ref[0]) and torch.equal(pres, ref[1])
+    n, g = state.n, 0 if ghosts is None else ghosts.count
+    assert src.shape == (2, n + g, 4) and src.is_contiguous()
+    assert torch.equal(src[0, :n, :3], pos) and torch.equal(src[1, :n, :3],
+                                                            vel)
+    m, oid = _fluid_rows(s)
+    np.testing.assert_allclose(src[0, :n, 3].numpy()[m], want["rho"][oid],
+                               rtol=RHO_RTOL, atol=RHO_ATOL)
+    np.testing.assert_allclose(
+        src[1, :n, 3].numpy()[m], np.float32(pv.mass) / want["rho"][oid],
+        rtol=2 * RHO_RTOL, atol=0)
+    if g:
+        assert torch.equal(src[:, n:], ghosts.records)
+
+
+@pytest.mark.parametrize("case", ["dam_break", "ghost_shell_open_top"])
+def test_source_records_carry_the_force_sweeps_inputs(case):
+    """Everything the force sweep reads of a source is in its two records:
+    the sweep on pos, vel and rho read back from the records equals the
+    sweep on the originals bit for bit, and m / rho is a true float32
+    division (what the kernel computes), dead rows included."""
+    state, params, dims = port_inputs(case)
+    (key, pos, vel, cs, ce), _, pv, g = sweep_inputs(state, params, dims)
+    rho, _ = sweeps.density(key, pos, cs, ce, pv, g)
+    src = sweeps.pack_sources(pos, vel, rho, pv, g)
+    n = state.n
+    back = (src[0, :n, :3].contiguous(), src[1, :n, :3].contiguous(),
+            src[0, :n, 3].contiguous())
+    for a, b in zip(sweeps.force_xsph(key, *back, cs, ce, pv, g, src),
+                    sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv, g)):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(
+        src[1, :n, 3].numpy(),
+        np.float32(pv.mass) / np.maximum(rho.numpy(), np.float32(1e-12)))
+    assert bool((rho == 0).any()) == bool((~state.fluid_mask()).any())
+
+
 # ---------------------------------------------------------------------------
 # kernels against the plain versions (CUDA only)
 # ---------------------------------------------------------------------------
@@ -313,6 +363,32 @@ def test_kernels_match_plain_on_cuda(cuda, case):
     torch.testing.assert_close(got[2], want[2], rtol=ACC_RTOL, atol=ACC_ATOL)
     assert sweeps.LAUNCHES == {"density": 1, "force_xsph": 1,
                                "force_xsph_emit": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CASES))
+def test_density_kernel_packs_source_records_on_cuda(cuda, case):
+    """The records that ``density_kernel`` writes are bit-equal to the
+    plain packing of its own rho; rho and pres do not depend on them; and
+    the force kernels on those records equal the force kernels on records
+    packed by the wrapper."""
+    state, params, dims = port_inputs(case, device=cuda)
+    (key, pos, vel, cs, ce), _, pv, g = sweep_inputs(state, params, dims)
+    sweeps.reset_launches()
+    rho, pres, src = sweeps.density_sources(key, pos, vel, cs, ce, pv, g)
+    ref = sweeps.density(key, pos, cs, ce, pv, g)
+    torch.cuda.synchronize()
+    assert torch.equal(rho, ref[0]) and torch.equal(pres, ref[1])
+    assert torch.equal(src, sweeps.pack_sources(pos, vel, rho, pv, g))
+    args = (key, pos, vel, rho, cs, ce, pv, g)
+    for a, b in zip(sweeps.force_xsph(*args, src), sweeps.force_xsph(*args)):
+        assert torch.equal(a, b)
+    assert torch.equal(sweeps.force_xsph_emit(*args, src),
+                       sweeps.force_xsph_emit(*args))
+    assert sweeps.LAUNCHES == {"density": 2, "force_xsph": 2,
+                               "force_xsph_emit": 2}
+    with pytest.raises(ValueError, match="shape"):
+        sweeps.force_xsph(*args, src[:, :-1].contiguous())
 
 
 @pytest.mark.cuda
@@ -388,3 +464,209 @@ def test_emit_rows_bit_identical_to_gather_on_cuda(cuda, case):
                                "force_xsph_emit": 5}
     for f in STATE_FIELDS:
         assert torch.equal(getattr(emit, f), getattr(gather, f)), f
+
+
+# ---------------------------------------------------------------------------
+# fixtures built to break a force kernel's blocking: crowded cells, blocks
+# that straddle grid rows, the grid's x edges, no fluid at all, one row
+# ---------------------------------------------------------------------------
+
+LATTICE_H = 0.4
+LATTICE_HALF = (1.2, 1.2, 1.2)       # grid 8 x 8 x 8, origin -1.6
+CROWD_CPU, CROWD_CARD = 300, 2400    # rows in the one crowded cell
+
+
+QUEUE_EDGE = 30     # rows added to one cell: its rows' neighbor counts lie
+                    # on both sides of the force kernel's 32-entry queue
+MOVER_SPEED = 0.35  # of h per substep, for a third of the "movers" rows
+MOVER_DT = 3e-3     # the "movers" substep: forces move a row 9x further
+
+
+def _lattice_spawn(cells_xyz, per_cell, seed, crowd=0, crowd_cell=(4, 1, 4)):
+    """``per_cell`` jittered rows in each listed cell, and ``crowd`` more
+    in ``crowd_cell``."""
+    rng = np.random.default_rng(seed)
+    gmin = -(np.asarray(LATTICE_HALF, np.float32) + np.float32(LATTICE_H))
+    cells_xyz = np.asarray(cells_xyz, np.float32).reshape(-1, 3)
+    idx = np.repeat(cells_xyz, per_cell, axis=0)
+    idx = np.concatenate([idx, np.tile(np.asarray(crowd_cell, np.float32),
+                                       (crowd, 1))])
+    pos = gmin + (idx + 0.05 + 0.9 * rng.random(idx.shape)) * LATTICE_H
+    pos = pos.astype(np.float32)
+    n = pos.shape[0]
+    vel = (0.1 * rng.standard_normal((n, 3))).astype(np.float32)
+    return TS.SpawnResult(
+        pos=pos, vel=vel, ghost=np.zeros((n,), np.int32),
+        face=np.full((n,), -1, np.int32),
+        color_group=np.zeros((n,), np.int32), count=n)
+
+
+def _cells(xs, ys, zs):
+    return [(x, y, z) for y in ys for z in zs for x in xs]
+
+
+def blocking_case(name, crowd=CROWD_CPU):
+    """(spawn, half, h, active faces) of a fixture named in BLOCKING."""
+    full = _cells(range(8), range(3), range(8))
+    if name == "full_rows":      # every cell of 24 grid rows, x = 0 and
+        spawn = _lattice_spawn(full, 2, 11)        # x = nx - 1 included
+    elif name == "straddle":     # 32 rows over four (y, z) grid rows
+        spawn = _lattice_spawn(_cells(range(8), (1, 2), (2, 3)), 1, 12)
+    elif name == "crowded_cell":   # one cell far beyond any staging buffer
+        spawn = _lattice_spawn(full, 2, 13, crowd=crowd)
+    elif name == "queue_edge":   # a cell whose rows fill the kernel's queue
+        spawn = _lattice_spawn(full, 2, 17, crowd=QUEUE_EDGE)
+    elif name == "movers":       # fast rows: the fresh position is far from
+        spawn = _lattice_spawn(full, 2, 18)        # the old one
+        rng = np.random.default_rng(19)
+        d = rng.standard_normal(spawn.vel.shape).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        fast = rng.random(spawn.count) < 1 / 3
+        spawn.vel[fast] = (MOVER_SPEED * LATTICE_H / MOVER_DT) * d[fast]
+    elif name == "single":       # n = 1
+        spawn = _lattice_spawn([(3, 1, 3)], 1, 14)
+    elif name == "ragged":       # n = 131: no multiple of any tile
+        spawn = _lattice_spawn(full[:131], 1, 15)
+    elif name == "no_fluid":     # an empty grid: ghosts only
+        spawn = TS.spawn_ghost_box_shell(h=LATTICE_H, box_half=LATTICE_HALF)
+    elif name == "ghosts_some_faces":   # -X, -Y, +Z only
+        spawn = TS.concat_spawns(
+            _lattice_spawn(full, 2, 16),
+            TS.spawn_ghost_box_shell(h=LATTICE_H, box_half=LATTICE_HALF))
+        return spawn, LATTICE_HALF, LATTICE_H, (1, 0, 1, 0, 0, 1)
+    else:
+        raise KeyError(name)
+    return spawn, LATTICE_HALF, LATTICE_H, ALL_FACES
+
+
+BLOCKING = ["full_rows", "straddle", "crowded_cell", "single", "ragged",
+            "no_fluid", "ghosts_some_faces", "queue_edge", "movers"]
+
+
+def blocking_inputs(name, device="cpu", crowd=CROWD_CPU):
+    """The sorted sweep inputs of a blocking fixture with a density made
+    from a seed (within 1% of rest, so the crowded cell's pressure forces
+    stay of the size the tolerances were set for)."""
+    spawn, half, h, active = blocking_case(name, crowd)
+    state = TS.state_from_spawn(spawn, device=device)
+    params = TP.FluidParams.default(
+        device=device, h=h, box_half=np.asarray(half, np.float32),
+        ghost_face_active=active).derive_mass()
+    dims = TP.compute_grid_dims(TP.SHAPE_BOX, half, (0, 0, 0), h)
+    assert dims == (8, 8, 8)
+    (key, pos, vel, cs, ce), s, pv, ghosts = sweep_inputs(state, params, dims)
+    u = np.random.default_rng(5).random(state.n).astype(np.float32)
+    if name == "movers":
+        # a fifth of the rows at up to 1.5 rho0 and a long substep: pressure
+        # pushes some rows further in it than the kernel's queue margin
+        u = np.where(np.random.default_rng(6).random(state.n) < 0.2, 50 * u,
+                     u).astype(np.float32)
+        pv = dataclasses.replace(pv, dt=float(np.float32(MOVER_DT)))
+    rho = torch.where(key < pv.num_cells,
+                      torch.as_tensor(1000.0 * (1.0 + 0.01 * u),
+                                      device=key.device),
+                      torch.zeros((), device=key.device))
+    return (key, pos, vel, rho, cs, ce, pv, ghosts), s
+
+
+def test_blocking_fixtures_are_what_they_claim():
+    sizes = {}
+    for name in BLOCKING:
+        (key, _, _, _, cs, ce, pv, ghosts), s = blocking_inputs(name)
+        counts = (ce - cs).numpy().reshape(8, 8, 8)      # [y, z, x]
+        sizes[name] = (int((key < pv.num_cells).sum()), int(counts.max()),
+                       ghosts is not None)
+        if name in ("full_rows", "crowded_cell", "ghosts_some_faces"):
+            assert (counts[:3] >= 2).all()    # x = 0 and x = 7 occupied
+    assert sizes["full_rows"] == (384, 2, False)
+    assert sizes["straddle"] == (32, 1, False)
+    assert sizes["crowded_cell"] == (384 + CROWD_CPU, 2 + CROWD_CPU, False)
+    assert sizes["single"] == (1, 1, False)
+    assert sizes["ragged"] == (131, 1, False)
+    assert sizes["no_fluid"][:2] == (0, 0) and sizes["no_fluid"][2]
+    assert sizes["ghosts_some_faces"] == (384, 2, True)
+    assert sizes["queue_edge"] == (384 + QUEUE_EDGE, 2 + QUEUE_EDGE, False)
+    assert sizes["movers"] == (384, 2, False)
+
+
+def test_queue_edge_and_movers_reach_the_kernels_other_paths():
+    """What the force kernel's queue is built around (csrc/sweeps.cu): 32
+    entries a row, taken within h of the row or within 1.05 h of where its
+    velocity alone would carry it, read again for the XSPH pass when the
+    forces moved the warp's rows less than 0.045 h from there, emptied on
+    the way when a row has more.  ``queue_edge`` has
+    rows with more and rows with fewer than 32 such sources; ``movers`` has
+    rows that step a third of h and rows on both sides of 0.045 h."""
+    from sph_tpu_torch.app.neighbor_counts import reach_counts
+    (key, pos, vel, rho, cs, ce, pv, g), s = blocking_inputs("queue_edge")
+    m = s.fluid_mask()
+    reach = (1 + sweeps.FORCE_MARGIN) * pv.h
+    near = (torch.cdist(pos[m], pos[m]) < reach).sum(1)
+    # every source in reach lies in the 9 ranges: the script's count (the
+    # row itself included) is the all-pairs count
+    cand, counted = reach_counts(key, pos, cs, ce, pv, g, reach)
+    assert torch.equal(counted, near) and bool((cand >= counted).all())
+    q = sweeps.FORCE_QUEUE
+    assert int((near - 1 > q).sum()) >= 20 and int((near - 1 < q).sum()) >= 300
+    (key, pos, vel, rho, cs, ce, pv, g), s = blocking_inputs("movers")
+    npos, _, _ = sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv, g)
+    m = s.fluid_mask()
+    step = torch.linalg.norm(npos - pos, dim=1)[m]
+    off = torch.linalg.norm(npos - (pos + vel * pv.dt * 0.995), dim=1)[m]
+    assert int((step > 0.3 * pv.h).sum()) >= 100
+    edge = 0.9 * sweeps.FORCE_MARGIN * pv.h
+    assert int((off > edge).sum()) >= 20 and int((off < edge).sum()) >= 100
+
+
+@pytest.mark.parametrize("name", BLOCKING)
+def test_force_xsph_plain_matches_all_pairs_on_blocking_fixtures(name):
+    """The cell sweep's plain version against the all-pairs plain version
+    (``brute_kernels.force_plain``, held to the JAX kernel in
+    test_torch_brute.py) on the same rows and densities: every pair within
+    h lies in the 9 ranges, at the grid's edges and in a crowded cell too.
+    Same tolerances as kernel against plain (the pair order differs)."""
+    from sph_tpu_torch.physics import brute_kernels as BK
+    (key, pos, vel, rho, cs, ce, pv, ghosts), s = blocking_inputs(name)
+    npos, nvel, acc = sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv,
+                                        ghosts)
+    m = s.fluid_mask()
+    assert torch.equal(npos[~m], pos[~m]) and bool((acc[~m] == 0).all())
+    if not bool(m.any()):
+        return
+    # all pairs: fluid rows as they are, contributing ghosts at rho0, P = 0
+    src = m.clone()
+    rho_all, v_all = rho.clone(), vel.clone()
+    if ghosts is not None:
+        on = (s.ghost > 0) & s.contrib_mask(
+            torch.as_tensor(blocking_case(name)[3]))
+        src |= on
+        rho_all[on] = pv.rho0
+        v_all[on] = 0.0
+    pres = torch.clamp_min(pv.gas_k * (rho_all - pv.rho0), 0.0)
+    want = BK.force_plain(pos, v_all, rho_all, pres, src.float(), pv)
+    np.testing.assert_allclose(npos[m], want[0][m], rtol=0, atol=POS_ATOL)
+    np.testing.assert_allclose(nvel[m], want[1][m], rtol=0, atol=VEL_ATOL)
+    np.testing.assert_allclose(acc[m], want[2][m], rtol=ACC_RTOL,
+                               atol=ACC_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BLOCKING)
+def test_force_kernels_on_blocking_fixtures_on_cuda(cuda, name):
+    """Both force kernels against the plain version on the fixtures built
+    to break a kernel's blocking (the crowded cell holds 2,400 rows here),
+    the emit variant bit-equal to the other, and a second launch of each
+    bit-equal to the first."""
+    args, _ = blocking_inputs(name, device=cuda, crowd=CROWD_CARD)
+    want = sweeps.force_xsph_plain(*args)
+    got = sweeps.force_xsph(*args)
+    per = sweeps.force_xsph_emit(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=POS_ATOL)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=VEL_ATOL)
+    torch.testing.assert_close(got[2], want[2], rtol=ACC_RTOL, atol=ACC_ATOL)
+    assert torch.equal(per[:, :9], torch.cat(got, 1))
+    assert torch.equal(per[:, 9], args[3])
+    for a, b in zip(sweeps.force_xsph(*args), got):
+        assert torch.equal(a, b)
+    assert torch.equal(sweeps.force_xsph_emit(*args), per)
