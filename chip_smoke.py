@@ -11,20 +11,24 @@ prints no result line):
 3. kernels — on the full ``default_131k`` and ``ghost_1m`` states (after
              one plain substep), each cell-engine kernel against its plain
              torch version on the same inputs: the cell table bit-equal
-             (fluid, and ghosts at ``ghost_1m``), the sweeps with ghost
-             sources at ``ghost_1m``; on the full ``dam_break_8k`` state
-             (after one plain all-pairs substep), the two all-pairs
-             kernels; each timed with CUDA events beside its plain
+             (fluid, with and without the state's ten other columns, and
+             ghosts at ``ghost_1m``), timed alone, with those columns as the
+             substep launches it, and beside the table alone plus ten torch
+             gathers; the sweeps with ghost sources at ``ghost_1m``; on the
+             full ``dam_break_8k`` state (after one plain all-pairs
+             substep), the two all-pairs kernels; each timed with CUDA events beside its plain
              version, with its bound (the least time the card could take
              for the same work) and the share of it that it reaches; a
              second launch of each force kernel must be bit-equal to the
              first; the density kernel's source records bit-equal to the
-             plain packing; then both cell-engine force kernels on a state
-             with 2,400 rows in one cell, against the plain version;
+             plain packing; then the density kernel and both cell-engine
+             force kernels on a state with 2,400 rows in one cell, against
+             the plain versions;
 4. emit    — on the full ``rotated_512k`` state (after the wave and one
-             plain substep), the emitted-row force kernel against its plain
-             version, timed likewise, then 16 substeps with
-             ``emit_rows`` and 16 without from one state, bit-identical;
+             plain substep), the cell table bit-equal as above, then the
+             emitted-row force kernel against its plain version, timed
+             likewise, then 16 substeps with ``emit_rows`` and 16 without
+             from one state, bit-identical;
 5. small   — the cell engine (kernels) and the all-pairs engine (kernels)
              against the all-pairs oracle over 20 substeps of a 2k dam
              break and of a 512-particle box inside a ghost shell (the
@@ -44,13 +48,16 @@ prints no result line):
              scripts' default sizes, timed likewise.
 
 The last lines are the kernels' JSON record (each kernel with the
-configuration or path whose launches and times it reports), the
+configuration or path whose launches and times it reports;
+``cell_table_kernel`` with the times and the bound of the launch the substep
+makes, the state's ten other columns carried, and the table alone and the
+ghosts' table, launched once per ``run_substeps``, under keys of their own;
+a kernel faster than its bound fails the run), the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -128,13 +135,6 @@ OPS_XSPH_NEAR = 17
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip()
 
 
 def max_err(a, b) -> float:
@@ -231,6 +231,11 @@ def report(config, name, k_ms, p_ms, nbytes, ops, rows, lib_ms=None):
         f"call {lib_ms!r} ms ({rows} rows); bound {b_ms!r} ms by {by} "
         f"({nbytes} bytes, {ops} operations), share of bound reached "
         f"{b_ms / k_ms!r}")
+    if k_ms < b_ms:
+        # possible only where the inputs stay in L2 between the timed
+        # launches (the byte bound is HBM's), or the count is wrong: main()
+        # refuses it in the kernels' record
+        log(f"{config} {name}: FASTER THAN ITS BOUND ({k_ms!r} < {b_ms!r} ms)")
     return {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": lib_ms}
 
@@ -250,10 +255,60 @@ def check_repeat(name, first, fn) -> None:
 def check_table(name, got, want) -> None:
     import torch
     for f, a, b in zip(got._fields, got, want):
-        if (a is None) != (b is None) or (a is not None
-                                          and not torch.equal(a, b)):
+        if f == "carried":
+            same = len(a) == len(b) and all(
+                x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+        else:
+            same = (a is None) == (b is None) and (a is None
+                                                   or torch.equal(a, b))
+        if not same:
             raise AssertionError(f"cell_table {name} {f}: kernel is not "
                                  f"bit-equal to the plain version")
+
+
+def carried_columns(state):
+    """The state's columns other than pos and vel, which ``cells.build``
+    has the cell table move: their names and tensors."""
+    import dataclasses
+    names = [f.name for f in dataclasses.fields(state)
+             if f.name not in ("pos", "vel")]
+    return names, [getattr(state, f) for f in names]
+
+
+def check_cell_tables(config, state, params, cfg, ghosts):
+    """The cell table at full ``config``, bit-equal to its plain version:
+    the fluid's alone and with the state's other columns, as
+    ``cells.build`` launches it, and the ghosts' (pos only); then
+    ``cells.build`` itself, which must make one launch.  Returns the
+    fluid's (skey, order), the carried columns and the built rows."""
+    import torch
+    from sph_tpu_torch.neighbors import cells
+
+    dims, nc = cfg.grid_dims, cfg.num_cells
+    fluid = cells.fluid_sort(state, params, dims)
+    names, carry = carried_columns(state)
+    tables = {"fluid": (fluid, state.vel, ()),
+              "fluid with the carried columns": (fluid, state.vel, carry)}
+    if ghosts is not None:
+        tables["ghosts"] = (cells.ghost_sort(state, params, dims), None, ())
+    for which, ((skey, order), vel, cols) in tables.items():
+        got = cells.cell_table(skey, order, state.pos, vel, nc, cols)
+        want = cells.cell_table_plain(skey, order, state.pos, vel, nc, cols)
+        torch.cuda.synchronize()
+        check_table(which, got, want)
+        log(f"{config} cell_table {which}: bit-equal ({int(skey.shape[0])} "
+            f"rows, {nc} cells, {int((want.cell_end > want.cell_start).sum())}"
+            f" occupied, {len(cols)} carried columns)")
+    cells.reset_launches()
+    r = cells.build(state, params, dims)
+    if cells.LAUNCHES["cell_table"] != 1:
+        raise AssertionError(f"{config}: cells.build made "
+                             f"{cells.LAUNCHES['cell_table']} launches")
+    for f, col in zip(names, carry):
+        if not torch.equal(getattr(r.state, f), col[fluid[1]]):
+            raise AssertionError(f"{config}: cells.build's {f} is not the "
+                                 f"gathered column")
+    return fluid, carry, r
 
 
 def phase_kernels(dev, config):
@@ -278,21 +333,8 @@ def phase_kernels(dev, config):
         sweeps.reassemble(r.state, rho, pres, *out, params,
                           ghosts=ghosts is not None), params)
 
-    # the cell table, bit-equal: the fluid's, and the ghosts' (pos only)
-    fluid = cells.fluid_sort(state, params, dims)
-    tables = {"fluid": (fluid, state.vel)}
-    if ghosts is not None:
-        tables["ghosts"] = (cells.ghost_sort(state, params, dims), None)
-    for which, ((skey, order), vel) in tables.items():
-        got = cells.cell_table(skey, order, state.pos, vel, nc)
-        want = cells.cell_table_plain(skey, order, state.pos, vel, nc)
-        torch.cuda.synchronize()
-        check_table(which, got, want)
-        log(f"{config} cell_table {which}: bit-equal ({int(skey.shape[0])} "
-            f"rows, {nc} cells, {int((want.cell_end > want.cell_start).sum())}"
-            f" occupied)")
+    fluid, carry, r = check_cell_tables(config, state, params, cfg, ghosts)
 
-    r = cells.build(state, params, dims)
     key, pos, vel, cs, ce = (r.key, r.state.pos, r.state.vel, r.cell_start,
                              r.cell_end)
     rho_p, pres_p = sweeps.density_plain(key, pos, cs, ce, pv, ghosts)
@@ -338,6 +380,8 @@ def phase_kernels(dev, config):
 
     skey, order = fluid
     n, nc8 = int(key.shape[0]), 8 * nc
+    # the table writes its ranges once: cell_end[c] is cell_start[c + 1]
+    ranges = 4 * (nc + 1)
     gbytes = 0 if ghosts is None else 12 * ghosts.count + nc8
     cand, near_d, near_f, near_x = cell_pairs(key, pos, fp[0], cs, ce, pv,
                                               ghosts)
@@ -345,8 +389,10 @@ def phase_kernels(dev, config):
         f"{near_d} within h (density), {near_f} (force), {near_x} (XSPH)")
     # bytes: each input read once, each output written once
     work = {
-        # skey, order, pos, vel in; spos, svel, cell_start, cell_end out
-        "cell_table": ((4 + 8 + 12 + 12) * n + 24 * n + nc8, 0),
+        # as the substep launches it, with the state's ten other columns:
+        # skey, order and every column in (4 + 8 + 12 * 3 + 4 * 9 bytes a
+        # row), the sorted columns (72 a row) and the ranges out
+        "cell_table": ((4 + 8 + 72) * n + 72 * n + ranges, 0),
         # key, pos, cell_start, cell_end (+ ghosts) in; rho, pres out;
         # no contrib weight in the pair math.  The source records that the
         # kernel also writes (vel in, 32 bytes a row out) are the port's own
@@ -361,9 +407,9 @@ def phase_kernels(dev, config):
     times = {
         "cell_table": (
             time_ms(lambda: cells.cell_table(skey, order, state.pos,
-                                             state.vel, nc), 50),
+                                             state.vel, nc, carry), 50),
             time_ms(lambda: cells.cell_table_plain(skey, order, state.pos,
-                                                   state.vel, nc), 50)),
+                                                   state.vel, nc, carry), 50)),
         "density": (
             time_ms(lambda: sweeps.density_sources(key, pos, vel, cs, ce, pv,
                                                    ghosts), 50),
@@ -378,24 +424,51 @@ def phase_kernels(dev, config):
     log(f"{config} density without the source records: "
         f"{time_ms(lambda: sweeps.density(key, pos, cs, ce, pv, ghosts), 50)!r}"
         f" ms")
+    # the table alone (skey, order, pos, vel in; spos, svel and the ranges
+    # out), the kernel's work before it carried the other columns, beside
+    # its plain version and beside that shape with the columns moved by ten
+    # torch gathers; and the ghosts' table (pos only), which the main path
+    # launches once per run_substeps
+    t_ms = time_ms(lambda: cells.cell_table(skey, order, state.pos, state.vel,
+                                            nc), 50)
+    t_plain = time_ms(lambda: cells.cell_table_plain(
+        skey, order, state.pos, state.vel, nc), 50)
+    t_gathers = time_ms(lambda: (cells.cell_table(
+        skey, order, state.pos, state.vel, nc), [c[order] for c in carry]), 50)
+    t_bound, _ = bound((4 + 8 + 24) * n + 24 * n + ranges, 0)
+    log(f"{config} cell_table alone (pos, vel and the ranges): kernel "
+        f"{t_ms!r} ms, plain {t_plain!r} ms, with {len(carry)} torch gathers "
+        f"for the other columns {t_gathers!r} ms; bound {t_bound!r} ms by "
+        f"bytes, share of bound reached {t_bound / t_ms!r}")
+    alone = {"table_ms": t_ms, "table_plain_ms": t_plain,
+             "table_bound_ms": t_bound, "table_and_gathers_ms": t_gathers}
+    if ghosts is not None:
+        gkey, gorder = cells.ghost_sort(state, params, dims)
+        alone["ghost_table_ms"] = time_ms(lambda: cells.cell_table(
+            gkey, gorder, state.pos, None, nc), 50)
+        log(f"{config} cell_table of the {int(gkey.shape[0])} ghosts (pos "
+            f"only): kernel {alone['ghost_table_ms']!r} ms")
     errs = {"cell_table": 0.0, "density": err_rho,
             "force_xsph": max(err_pos, err_vel, err_acc)}
-    return {name: {"max_abs_err": errs[name],
-                   **report(config, name, *times[name], *work[name], n)}
-            for name in times}
+    out = {name: {"max_abs_err": errs[name],
+                  **report(config, name, *times[name], *work[name], n)}
+           for name in times}
+    out["cell_table"].update(alone)
+    return out
 
 
 CROWD_ROWS = 2400            # rows in the one crowded cell
 
 
 def phase_crowded(dev):
-    """Both cell-engine force kernels on a state with ``CROWD_ROWS`` rows in
-    one cell of an 8 x 8 x 8 grid (2 rows in every cell of its lower three
-    layers, the x edges included): far more than the force kernel's
-    32-entry queue holds, so its warps empty their queues many times on
-    the way and walk twice; the port has no cell capacity to fall back on.  Held against the plain version; the density is made from a seed, within 1%
-    of rest, so that the forces stay of the size the tolerances were set
-    for."""
+    """The density kernel and both cell-engine force kernels on a state
+    with ``CROWD_ROWS`` rows in one cell of an 8 x 8 x 8 grid (2 rows in
+    every cell of its lower three layers, the x edges included): far more
+    than the force kernel's 32-entry queue holds, so its warps empty their
+    queues many times on the way and walk twice; the port has no cell
+    capacity to fall back on.  Each is held against its plain version; the
+    force kernels' input density is made from a seed, within 1% of rest, so
+    that the forces stay of the size the tolerances were set for."""
     import numpy as np
     import torch
     from sph_tpu_torch.core import state as S
@@ -428,6 +501,22 @@ def phase_crowded(dev):
     if dims != (8, 8, 8) or fullest != CROWD_ROWS + 2:
         raise AssertionError(f"crowded cell: grid {dims}, fullest cell "
                              f"{fullest} rows")
+    rho_p, _ = sweeps.density_plain(r.key, r.state.pos, r.cell_start,
+                                    r.cell_end, pv, ghosts)
+    dens = lambda: sweeps.density_sources(r.key, r.state.pos, r.state.vel,
+                                          r.cell_start, r.cell_end, pv, ghosts)
+    rho_k, pres_k, src_k = dens()
+    torch.cuda.synchronize()
+    err_rho = check_close("crowded density rho", rho_k, rho_p, RHO_RTOL,
+                          RHO_ATOL)
+    check_repeat("crowded density", (rho_k, pres_k, src_k), dens)
+    if not torch.equal(src_k, sweeps.pack_sources(r.state.pos, r.state.vel,
+                                                  rho_k, pv, ghosts)):
+        raise AssertionError("crowded cell: the density kernel's source "
+                             "records are not bit-equal to the plain packing")
+    log(f"crowded cell ({n} fluid rows, {fullest} in one cell): density max "
+        f"abs err {err_rho!r} (rho up to {float(rho_p.max())!r}); a second "
+        f"launch is bit-equal; source records bit-equal to the plain packing")
     rows = int(r.key.shape[0])            # the state pads past the spawn
     rho = torch.where(
         r.key < pv.num_cells,
@@ -547,7 +636,7 @@ def phase_emit(dev, config):
         sweeps.reassemble(r.state, rho, pres, *out, params,
                           ghosts=ghosts is not None), params)
 
-    r = cells.build(state, params, cfg.grid_dims)
+    _, _, r = check_cell_tables(config, state, params, cfg, ghosts)
     key, pos, vel, cs, ce = (r.key, r.state.pos, r.state.vel, r.cell_start,
                              r.cell_end)
     rho, _ = sweeps.density_plain(key, pos, cs, ce, pv, ghosts)
@@ -761,6 +850,26 @@ def phase_small(dev):
                          float(params.rest_density))
 
 
+def check_no_host_wait(state, params, dt, cfg) -> None:
+    """Substeps of the all-pairs engine with the per-run constants built
+    beforehand, as ``run_substeps`` runs them, under torch's synchronisation
+    check: any device-to-host wait inside a substep raises.  Called after the
+    main path's launch counts are read."""
+    import torch
+    from sph_tpu_torch.engine.step import neighbor_aux, substep
+
+    aux = neighbor_aux(state, params, dt, cfg)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            state = substep(state, params, dt, cfg, aux=aux)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"{cfg.neighbor_impl}: 2 substeps after neighbor_aux made no "
+        f"device-to-host wait")
+
+
 def phase_main(dev, config):
     """The port's main path: configs.build with no device (the card is
     the default), then frames of frame_prologue + run_substeps at
@@ -769,6 +878,7 @@ def phase_main(dev, config):
 
     import torch
     from sph_tpu_torch.app import configs
+    from sph_tpu_torch.core.device import card_line
     from sph_tpu_torch.core.params import rotation_matrix
     from sph_tpu_torch.engine.step import run_substeps
 
@@ -843,6 +953,9 @@ def phase_main(dev, config):
     if n_ghost:
         check_ghosts(config, start, state, rho0)
 
+    if cfg.neighbor_impl == "brute_kernel":
+        check_no_host_wait(state, params, dt, cfg)
+
     ms = wall / timed * 1e3
     rate = n_fluid * timed / wall
     log(f"main path {config}: {ms!r} ms/substep, {rate!r} particle-steps/s "
@@ -857,6 +970,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    from sph_tpu_torch.core.device import card_line
     from sph_tpu_torch.native import build
 
     card = card_line()
@@ -886,6 +1000,11 @@ def main() -> int:
          "replaces": replaces, "config": config,
          "launches": counts[config][name], **measured[config][name]}
         for name, (source, replaces, config) in KERNELS.items()]}
+    for k in record["kernels"]:
+        if k["ms"] < k["bound_ms"]:
+            raise AssertionError(f"{k['name']}: {k['ms']} ms is less than its "
+                                 f"bound of {k['bound_ms']} ms: the bound's "
+                                 f"count is wrong")
     log(f"all phases passed in {time.perf_counter() - t_start!r} s, the "
         f"build included")
     print(json.dumps(record), flush=True)

@@ -1,0 +1,101 @@
+"""Benchmark entry point of the port: prints ONE JSON line on stdout
+(counterpart of ``bench.py`` at the repo root, which drives the JAX
+package).
+
+    python -m sph_tpu_torch.app.bench [config_name] [n_substeps]
+
+Defaults ``ghost_1m`` and 20, as ``bench.py:23-24``.  It builds the
+configuration on the CUDA card (with no card it raises), runs one warm-up
+frame, the configuration's frame prologue and ``n_substeps`` substeps,
+then times ``FRAMES`` more such frames with the host clock around work
+that ends in ``torch.cuda.synchronize()``, and reports the median frame as
+particle-steps per second: fluid rows x substeps / seconds.  The host
+clock spreads from frame to frame, so the card's name and power limit, every
+frame's ms per substep and their min and max go to stderr.  The JSON line
+has exactly ``metric``, ``value``, ``unit`` and ``vs_baseline``
+(``bench.py:171-176``); the baseline is the reference's design point,
+about 4.8e7 particle-steps/s (50k particles x 16 substeps x 60 fps,
+``BASELINE.md``).
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+from typing import Union
+
+import torch
+
+from sph_tpu_torch.app import configs
+from sph_tpu_torch.core.device import card_line, resolve
+from sph_tpu_torch.engine.step import run_substeps
+
+REFERENCE_BASELINE_PSTEPS = 4.8e7
+FRAMES = 5                   # timed frames, after one of warm-up
+
+
+def _log(msg: str) -> None:
+    print(f"[bench] {msg}", file=sys.stderr, flush=True)
+
+
+def run(cfg: Union[str, configs.BenchConfig], n_substeps: int = 20,
+        device=None, frames: int = FRAMES) -> dict:
+    """Time ``frames`` frames of ``cfg`` after one warm-up frame; returns
+    the record that ``main`` prints.  ``device`` is the CUDA card unless
+    the caller names another (the tests pass ``"cpu"``)."""
+    if frames < 1:
+        raise ValueError("the bench times at least one frame")
+    dev = resolve(device)
+    cuda = dev.type == "cuda"
+    name = cfg if isinstance(cfg, str) else cfg.name
+    state, params, sim = configs.build(cfg, device=dev)
+    prologue = configs.frame_prologue(cfg, params, n_substeps)
+    n_fluid = int(state.fluid_mask().sum())
+    _log(f"device: {card_line() if cuda else dev}")
+    _log(f"config={name} fluid={n_fluid} padded={state.n} "
+         f"grid={sim.grid_dims} impl={sim.neighbor_impl}")
+
+    def frame(st):
+        t0 = time.perf_counter()
+        st = run_substeps(prologue(st), params, params.dt, n_substeps, sim)
+        if cuda:
+            torch.cuda.synchronize(dev)
+        return st, time.perf_counter() - t0
+
+    state, warm = frame(state)
+    _log(f"warm-up frame: {warm:.3f}s")
+    seconds = []
+    for _ in range(frames):
+        state, s = frame(state)
+        seconds.append(s)
+    ms = [1e3 * s / n_substeps for s in seconds]
+    _log(f"{frames} frames of {n_substeps} substeps, ms/substep: "
+         f"{[round(m, 4) for m in ms]} (median "
+         f"{statistics.median(ms):.4f}, min {min(ms):.4f}, max {max(ms):.4f})")
+
+    # sanity: the simulation must stay finite
+    if bool(torch.isnan(state.pos).any()):
+        raise AssertionError("NaN in positions after the bench run")
+
+    psteps = n_fluid * n_substeps / statistics.median(seconds)
+    return {
+        "metric": f"particle-steps/sec @ {name}",
+        "value": round(psteps, 1),
+        "unit": "particle-steps/sec",
+        "vs_baseline": round(psteps / REFERENCE_BASELINE_PSTEPS, 3),
+    }
+
+
+def main(argv=None) -> None:
+    argv = sys.argv[1:] if argv is None else argv
+    name = argv[0] if len(argv) > 0 else "ghost_1m"
+    n_substeps = int(argv[1]) if len(argv) > 1 else 20
+    if name not in configs.CONFIGS:
+        sys.exit(f"unknown config '{name}'; "
+                 f"available: {', '.join(sorted(configs.CONFIGS))}")
+    print(json.dumps(run(name, n_substeps)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

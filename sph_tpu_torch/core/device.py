@@ -6,6 +6,8 @@ running on the host behind the caller's back.
 """
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -21,3 +23,11 @@ def resolve(device=None) -> torch.device:
             "no CUDA card is available (torch.cuda.is_available() is "
             "False); pass device=\"cpu\" to run on the host")
     return torch.device("cuda")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()

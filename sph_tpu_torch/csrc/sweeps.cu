@@ -75,7 +75,26 @@
 // used, so two launches on the same inputs are bit-equal, and the emit
 // variant is bit-equal to the plain one.  No TMA or wgmma: the ranges are
 // short, ragged and per lane, and there is no matrix product.
-// density_kernel still takes one scalar walk per row (next in line).
+//
+// What bounds the density kernel (same card; PERF.md section 6 has every
+// shape tried): the rate at which the SMs issue the walk, as in the force
+// kernel, with about half of a warp's lanes busy (each range's loop runs as
+// long as its fullest lane's).  At ghost_1m, 0.073 ms with the records (the
+// C entry point alone, on outputs allocated beforehand; 0.080 ms as
+// chip_smoke.py times the wrapper, which also allocates them and copies the
+// ghosts' records behind the fluid's): a launch that loads all 18 range
+// bounds a row and walks no candidate takes
+// 0.038 ms (key, pos and vel in, rho, pres and the two records out, 90 MB;
+// 0.022 without the records), and with every candidate load folded onto a
+// 12 KB window that stays in L1 the whole kernel still takes 0.069 ms, so
+// the candidates' traffic is not what binds it.  16-byte candidate rows,
+// four candidates a step, one flat loop over a lane's ranges, several rows a
+// thread with shared candidate loads, larger or smaller blocks and 12 or 16
+// blocks an SM all cost as much or more.  What did pay: every bound of a
+// structure's 9 ranges loaded before the first is walked, two candidates a
+// step, and no ghost walk where the cell's 3x3x3 block holds no ghost.  Not
+// tried, for the reasons above: shared-memory staging of a block's sources
+// (three shapes lost in the force kernel), TMA, wgmma.
 //
 // Semantics are those of sph_tpu/physics/common.py: density includes the
 // self pair; the force sweep skips it and reads only live sources
@@ -92,7 +111,8 @@
 // v = 0 (brute_force.py / common.finish_density), is never the row itself,
 // and takes the same r < h and r > 0 guards as a fluid source.  Without
 // ghosts the second walk is skipped, so a ghost-free state does no extra
-// work.
+// work; the density sweep also skips it for a row whose cell has no ghost
+// in its 3x3x3 block (gnear, built once per run with the ghost structure).
 
 #include <cuda_runtime.h>
 
@@ -108,40 +128,16 @@ constexpr float kDamping = 0.995f;         // SPHFluid.comp:170
 constexpr float kCflFraction = 0.4f;       // SPHFluid3D.cpp:414-416
 constexpr float kSurfaceThreshold = 1e-6f; // SPHFluid.comp:159
 
-struct Walk {
-  int x0, x1, y0, y1, z0, z1;
-};
-
-// The clamped 3x3x3 cell block around cell key k.
-__device__ __forceinline__ Walk walk_of(int k, const SphSweepParams& p) {
-  const int x = k % p.nx;
-  const int t = k / p.nx;
-  const int z = t % p.nz;
-  const int y = t / p.nz;
-  Walk w;
-  w.x0 = max(x - 1, 0);
-  w.x1 = min(x + 1, p.nx - 1);
-  w.y0 = max(y - 1, 0);
-  w.y1 = min(y + 1, p.ny - 1);
-  w.z0 = max(z - 1, 0);
-  w.z1 = min(z + 1, p.nz - 1);
-  return w;
-}
-
-// Calls f(j) for every row j of the block's 9 contiguous x-ranges.
-template <class F>
-__device__ __forceinline__ void for_each_candidate(
-    const Walk& w, const SphSweepParams& p, const int* __restrict__ cs,
-    const int* __restrict__ ce, F f) {
-  for (int y = w.y0; y <= w.y1; ++y) {
-    for (int z = w.z0; z <= w.z1; ++z) {
-      const int row = p.nx * (z + p.nz * y);
-      const int end = __ldg(ce + row + w.x1);
-      for (int j = __ldg(cs + row + w.x0); j < end; ++j) f(j);
-    }
-  }
-}
-
+// The density sweep: one thread a row.  It loads the bounds of all 9 of the
+// block's contiguous x-ranges up front, 18 loads in flight at once where a
+// loop over the ranges pays one load latency a range, then walks them two
+// candidates a step, branch-free: a candidate beyond h adds
+// max(h2 - r2, 0)^3 = 0.  The 9 ghost ranges are walked the same way, but
+// only where gnear says that the cell's 3x3x3 block holds a ghost at all
+// (1.6% of ghost_1m's fluid rows at the start, 16% once the columns have
+// compressed).  The sum runs in the walk's order, so two launches are
+// bit-equal, and so are the sums with and without the source records.
+//
 // With vel and sa / sb it also writes row i's source records for the force
 // sweep: sa[i] = (x, y, z, rho), sb[i] = (vx, vy, vz, mass / max(rho, 1e-12)).
 __global__ void __launch_bounds__(kBlock)
@@ -149,7 +145,8 @@ density_kernel(const int* __restrict__ key, const float* __restrict__ pos,
                const float* __restrict__ vel, const int* __restrict__ cs,
                const int* __restrict__ ce, int n,
                const float* __restrict__ gpos, const int* __restrict__ gcs,
-               const int* __restrict__ gce, int has_ghosts, SphSweepParams p,
+               const int* __restrict__ gce,
+               const unsigned char* __restrict__ gnear, SphSweepParams p,
                float* __restrict__ rho, float* __restrict__ pres,
                float4* __restrict__ sa, float4* __restrict__ sb) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -158,22 +155,41 @@ density_kernel(const int* __restrict__ key, const float* __restrict__ pos,
   const float xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
   float r = 0.f, pr = 0.f;
   if (k < p.nx * p.ny * p.nz) {
-    const Walk w = walk_of(k, p);
+    const int x = k % p.nx;
+    const int z = (k / p.nx) % p.nz;
+    const int y = k / (p.nx * p.nz);
+    const int x0 = max(x - 1, 0), x1 = min(x + 1, p.nx - 1);
     float sum = 0.f;
-    auto add = [&](const float* src, int j) {
-      const float dx = xi - __ldg(src + 3 * j);
-      const float dy = yi - __ldg(src + 3 * j + 1);
-      const float dz = zi - __ldg(src + 3 * j + 2);
-      const float r2 = dx * dx + dy * dy + dz * dz;
-      if (r2 < p.h2) {
-        const float d = p.h2 - r2;
+    // the 9 ranges of one structure: sources src, ranges st / en
+    auto walk = [&](const float* __restrict__ src, const int* __restrict__ st,
+                    const int* __restrict__ en) {
+      auto add = [&](int j) {
+        const float dx = xi - __ldg(src + 3 * j);
+        const float dy = yi - __ldg(src + 3 * j + 1);
+        const float dz = zi - __ldg(src + 3 * j + 2);
+        const float d = fmaxf(p.h2 - (dx * dx + dy * dy + dz * dz), 0.f);
         sum += d * d * d;
+      };
+      int first[9], end[9];
+#pragma unroll
+      for (int q = 0; q < 9; ++q) {
+        const int yy = y + q / 3 - 1, zz = z + q % 3 - 1;
+        const bool in_grid =
+            static_cast<unsigned>(yy) < static_cast<unsigned>(p.ny) &&
+            static_cast<unsigned>(zz) < static_cast<unsigned>(p.nz);
+        const int row = p.nx * (zz + p.nz * yy);
+        first[q] = in_grid ? __ldg(st + row + x0) : 0;
+        end[q] = in_grid ? __ldg(en + row + x1) : 0;
+      }
+#pragma unroll
+      for (int q = 0; q < 9; ++q) {
+        int j = first[q];
+        for (; j + 1 < end[q]; j += 2) add(j), add(j + 1);
+        if (j < end[q]) add(j);
       }
     };
-    for_each_candidate(w, p, cs, ce, [&](int j) { add(pos, j); });
-    if (has_ghosts) {
-      for_each_candidate(w, p, gcs, gce, [&](int j) { add(gpos, j); });
-    }
+    walk(pos, cs, ce);
+    if (gnear != nullptr && gnear[k]) walk(gpos, gcs, gce);
     // mass * poly6 scale and the density floor (SPHFluid.comp:105), EOS,
     // after both walks (common.finish_density)
     r = fmaxf(p.mass * p.poly6 * sum, p.rho_floor);
@@ -493,8 +509,9 @@ extern "C" int sph_density(const int* key, const float* pos,
                            const float* vel, const int* cell_start,
                            const int* cell_end, int n, const float* ghost_pos,
                            const int* ghost_start, const int* ghost_end,
-                           int has_ghosts, const SphSweepParams* params,
-                           float* rho, float* pres, float* src, int src_rows,
+                           const unsigned char* ghost_near,
+                           const SphSweepParams* params, float* rho,
+                           float* pres, float* src, int src_rows,
                            void* stream) {
   if (n > 0) {
     const bool pack = vel != nullptr && src != nullptr;
@@ -502,7 +519,7 @@ extern "C" int sph_density(const int* key, const float* pos,
     density_kernel<<<grid_for(n), kBlock, 0,
                      static_cast<cudaStream_t>(stream)>>>(
         key, pos, vel, cell_start, cell_end, n, ghost_pos, ghost_start,
-        ghost_end, has_ghosts, *params, rho, pres, sa,
+        ghost_end, ghost_near, *params, rho, pres, sa,
         pack ? sa + src_rows : nullptr);
   }
   return static_cast<int>(cudaGetLastError());

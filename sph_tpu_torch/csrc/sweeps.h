@@ -6,7 +6,10 @@
 // cell_start / cell_end [num_cells] int32.  The ghost structure:
 // ghost_pos [g][3] float32 (contributing ghosts sorted by the same key),
 // ghost_start / ghost_end [num_cells] int32; with has_ghosts 0 the
-// pointers are not read and may be null.
+// pointers are not read and may be null.  The density sweep takes
+// ghost_near [num_cells] uint8 in place of the flag: whether any cell of the
+// cell's 3x3x3 block holds a ghost (it walks the ghost ranges only there);
+// a null ghost_near means no ghosts.
 //
 // The source records, src [2][src_rows][4] float32, 16-byte aligned, are
 // what the force sweep reads of a source: src[0][j] = (x, y, z, rho) and
@@ -42,7 +45,7 @@ typedef struct {
 int sph_density(const int* key, const float* pos, const float* vel,
                 const int* cell_start, const int* cell_end, int n,
                 const float* ghost_pos, const int* ghost_start,
-                const int* ghost_end, int has_ghosts,
+                const int* ghost_end, const unsigned char* ghost_near,
                 const SphSweepParams* params, float* rho, float* pres,
                 float* src, int src_rows, void* stream);
 

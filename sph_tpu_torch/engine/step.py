@@ -9,7 +9,7 @@ is ``substep`` here: the SPH solve with the configured neighbor engine,
 then the container pass.  Frames run a fixed-dt substep loop
 (``Scene0p.cpp:1321-1333``), a plain Python loop in eager PyTorch where
 the JAX package used ``lax.scan``.  River and fountain modes come with
-their own slice (ROADMAP queue 1 item 7).
+their own slice (ROADMAP queue 1, "River and fountain modes").
 """
 from __future__ import annotations
 
@@ -23,12 +23,15 @@ from sph_tpu_torch.physics import brute_force, brute_kernels, constraints
 
 def neighbor_aux(state: ParticleState, params: FluidParams, dt,
                  config: SimConfig):
-    """Per-run constants of the neighbor engine (the cell engine's sweep
-    params and static ghost structure), built once outside the substep
-    loop: ghosts never move and face activation is fixed within a run.
-    The all-pairs engines (``"brute"``, ``"brute_kernel"``) have none."""
+    """Per-run constants of the neighbor engine, built once outside the
+    substep loop: the cell engine's sweep params and static ghost structure
+    (ghosts never move and face activation is fixed within a run), the
+    all-pairs kernels' sweep params (deriving them waits for the device
+    once).  The oracle (``"brute"``) has none."""
     if config.neighbor_impl == "cell":
         return sweeps.prepare(state, params, dt, config)
+    if config.neighbor_impl == "brute_kernel":
+        return brute_kernels.prepare(params, dt)
     return None
 
 
@@ -41,7 +44,7 @@ def sph_solve(state: ParticleState, params: FluidParams, dt,
     if config.neighbor_impl == "brute":
         return brute_force.substep(state, params, dt)
     if config.neighbor_impl == "brute_kernel":
-        return brute_kernels.substep(state, params, dt)
+        return brute_kernels.substep(state, params, dt, pv=aux)
     if config.neighbor_impl == "cell":
         return sweeps.substep(state, params, dt, config, aux=aux)
     raise ValueError(f"unknown neighbor_impl: {config.neighbor_impl!r}")
@@ -53,7 +56,7 @@ def substep(state: ParticleState, params: FluidParams, dt,
     if config.river_mode or config.fountain_mode:
         raise NotImplementedError(
             "river and fountain modes are not ported yet: see ROADMAP "
-            "queue 1 item 7")
+            "queue 1, 'River and fountain modes'")
     state = sph_solve(state, params, dt, config, aux=aux)
     return constraints.apply_container(state, params)
 

@@ -37,6 +37,21 @@ class SweepParamsC(ctypes.Structure):
         (name, ctypes.c_int) for name in ("nx", "ny", "nz")]
 
 
+CELL_MAX_WIDE, CELL_MAX_NARROW = 4, 12
+
+
+class CellColumnsC(ctypes.Structure):
+    """ctypes mirror of ``SphCellColumns`` in ``csrc/cells.h``: the columns
+    that one cell-table launch moves, [*, 3] ones and [*] ones."""
+    _fields_ = [("wide_in", ctypes.c_void_p * CELL_MAX_WIDE),
+                ("wide_out", ctypes.c_void_p * CELL_MAX_WIDE),
+                ("narrow_in", ctypes.c_void_p * CELL_MAX_NARROW),
+                ("narrow_out", ctypes.c_void_p * CELL_MAX_NARROW),
+                ("wide_stride", ctypes.c_int * CELL_MAX_WIDE),
+                ("narrow_stride", ctypes.c_int * CELL_MAX_NARROW),
+                ("n_wide", ctypes.c_int), ("n_narrow", ctypes.c_int)]
+
+
 def _sources():
     names = sorted(f for f in os.listdir(CSRC_DIR)
                    if f.endswith((".cu", ".cuh", ".h")))
@@ -98,9 +113,10 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(library_path())
     p, i = ctypes.c_void_p, ctypes.c_int
     prm = ctypes.POINTER(SweepParamsC)
-    lib.sph_cell_table.argtypes = [p, p, p, p, i, i, p, p, p, p, p]
+    lib.sph_cell_table.argtypes = [p, p, i, i, ctypes.POINTER(CellColumnsC),
+                                   p, p]
     lib.sph_cell_table.restype = i
-    lib.sph_density.argtypes = [p, p, p, p, p, i, p, p, p, i, prm, p, p, p, i,
+    lib.sph_density.argtypes = [p, p, p, p, p, i, p, p, p, p, prm, p, p, p, i,
                                 p]
     lib.sph_density.restype = i
     lib.sph_force_xsph.argtypes = [p, p, i, p, p, i, p, p, i, prm, p, p, p, p]

@@ -7,9 +7,10 @@ fixed-capacity dense slot tables for its TPU kernels
 (``mxu_permute._expand_kernel``).  Here the sorted rows themselves are the
 neighbor structure: ``cell_start[c]`` and ``cell_end[c]`` bound cell
 ``c``'s rows, so no cell has a capacity and no particle can overflow one.
-:func:`cell_table` builds the sorted pos/vel and those ranges in one CUDA
-kernel (``csrc/cells.cu``) on CUDA tensors, and with ``torch.searchsorted``
-and index gathers (:func:`cell_table_plain`) on CPU tensors.
+:func:`cell_table` builds the sorted rows (pos, vel and whatever other
+columns the caller hands it) and those ranges in one CUDA kernel
+(``csrc/cells.cu``) on CUDA tensors, and with ``torch.searchsorted`` and
+index gathers (:func:`cell_table_plain`) on CPU tensors.
 
 The key is y-major with x fastest, ``x + nx*(z + nz*y)``, so the three
 cells ``x-1 .. x+1`` at one ``(y, z)`` are one contiguous row range; the
@@ -18,7 +19,8 @@ sweeps walk 9 such ranges instead of 27 cells.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+import ctypes
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,31 +53,78 @@ class CellTable(NamedTuple):
     vel: Optional[torch.Tensor]       # [N,3] sorted, or None
     cell_start: torch.Tensor          # [num_cells] i32
     cell_end: torch.Tensor            # [num_cells] i32
+    carried: Tuple[torch.Tensor, ...] = ()   # the other columns, sorted
 
 
-def cell_table_plain(skey, order, pos, vel, num_cells: int) -> CellTable:
+def cell_table_plain(skey, order, pos, vel, num_cells: int,
+                     carry: Sequence[torch.Tensor] = ()) -> CellTable:
     """Plain torch version of ``cell_table_kernel``."""
     cells = torch.arange(num_cells, dtype=skey.dtype, device=skey.device)
     start = torch.searchsorted(skey, cells, out_int32=True)
     end = torch.searchsorted(skey, cells, right=True, out_int32=True)
-    return CellTable(pos[order], None if vel is None else vel[order],
-                     start, end)
+    return CellTable(pos[order], None if vel is None else vel[order], start,
+                     end, tuple(c[order] for c in carry))
+
+
+def _columns(dev, n: int, m: int, pos, vel, carry):
+    """The kernel's column arguments: the [m, 3] columns (pos first, vel
+    second when given) and the [m] ones of ``carry``, checked, each with a
+    new contiguous [n, ...] tensor for its sorted copy.  A column may be a
+    strided view of a wider buffer (the emitted-row transport's are) as long
+    as its three words lie together.  Returns the C struct and the outputs
+    in the order (pos, vel or None, *carry)."""
+    cols = [("pos", pos)] + ([] if vel is None else [("vel", vel)]) + [
+        (f"carry[{k}]", c) for k, c in enumerate(carry)]
+    arg = native.CellColumnsC()
+    outs = []
+    for name, c in cols:
+        wide = c.dim() == 2
+        if c.device != dev:
+            raise ValueError(f"{name} is on {c.device}, expected {dev}")
+        if c.dtype not in (torch.float32, torch.int32):
+            raise ValueError(f"{name} has dtype {c.dtype}: the cell table "
+                             f"moves 4-byte columns (float32, int32)")
+        if tuple(c.shape) != ((m, 3) if wide else (m,)):
+            raise ValueError(f"{name} has shape {tuple(c.shape)}, expected "
+                             f"({m}, 3) or ({m},)")
+        if wide and m > 0 and c.stride(1) != 1:   # no rows: any strides
+            raise ValueError(f"{name}: the three words of a row do not lie "
+                             f"together")
+        kind = "wide" if wide else "narrow"
+        k = getattr(arg, f"n_{kind}")
+        if k >= (native.CELL_MAX_WIDE if wide else native.CELL_MAX_NARROW):
+            raise ValueError(f"too many [{'N, 3' if wide else 'N'}] columns "
+                             f"for one cell-table launch")
+        out = torch.empty((n, *c.shape[1:]), dtype=c.dtype, device=dev)
+        getattr(arg, f"{kind}_in")[k] = c.data_ptr()
+        getattr(arg, f"{kind}_out")[k] = out.data_ptr()
+        getattr(arg, f"{kind}_stride")[k] = c.stride(0)
+        setattr(arg, f"n_{kind}", k + 1)
+        outs.append(out)
+    if vel is None:
+        outs.insert(1, None)
+    return arg, outs
 
 
 def cell_table(skey: torch.Tensor, order: torch.Tensor, pos: torch.Tensor,
-               vel: Optional[torch.Tensor], num_cells: int) -> CellTable:
+               vel: Optional[torch.Tensor], num_cells: int,
+               carry: Sequence[torch.Tensor] = ()) -> CellTable:
     """The cell table of rows sorted by key: ``pos[order]`` and
     ``vel[order]`` (``vel`` may be None), and ``cell_start[c]`` /
     ``cell_end[c]``, the first row with key >= c and the first with
     key > c (``torch.searchsorted``'s semantics, so an empty cell has
-    start = end = its insertion point).
+    start = end = its insertion point; on CUDA tensors the two are views of
+    one array of ``num_cells + 1`` bounds).
 
     ``skey`` [N] int32 ascending (rows outside the table carry
     ``num_cells``), ``order`` [N] int64 into the rows of ``pos``/``vel``.
+    ``carry`` are more columns of the same rows, [M] or [M, 3], float32 or
+    int32: ``carried[k] = carry[k][order]``, moved in the same launch as raw
+    32-bit words.
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     dev = skey.device
     if dev.type == "cpu":
-        return cell_table_plain(skey, order, pos, vel, num_cells)
+        return cell_table_plain(skey, order, pos, vel, num_cells, carry)
     if dev.type != "cuda":
         raise ValueError(f"the cell table takes CUDA or CPU tensors, got {dev}")
     n, m = skey.shape[0], pos.shape[0]
@@ -83,22 +132,18 @@ def cell_table(skey: torch.Tensor, order: torch.Tensor, pos: torch.Tensor,
         raise ValueError("too many rows or cells for the kernel's int32 "
                          "indexing")
     native.check_tensor("skey", skey, torch.int32, (n,), dev)
+    if skey.data_ptr() % 16:
+        raise ValueError("skey is not 16-byte aligned (a slice?): the kernel "
+                         "reads it four keys at a time")
     native.check_tensor("order", order, torch.int64, (n,), dev)
-    native.check_tensor("pos", pos, torch.float32, (m, 3), dev)
-    if vel is not None:
-        native.check_tensor("vel", vel, torch.float32, (m, 3), dev)
-    spos = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    svel = None if vel is None else torch.empty_like(spos)
-    start = torch.empty(num_cells, dtype=torch.int32, device=dev)
-    end = torch.empty_like(start)
+    arg, outs = _columns(dev, n, m, pos, vel, carry)
+    bounds = torch.empty(num_cells + 1, dtype=torch.int32, device=dev)
     err = native.library().sph_cell_table(
-        skey.data_ptr(), order.data_ptr(), pos.data_ptr(),
-        None if vel is None else vel.data_ptr(), n, num_cells,
-        spos.data_ptr(), None if svel is None else svel.data_ptr(),
-        start.data_ptr(), end.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        skey.data_ptr(), order.data_ptr(), n, num_cells, ctypes.byref(arg),
+        bounds.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     native.launched(LAUNCHES, "cell_table", err)
-    return CellTable(spos, svel, start, end)
+    return CellTable(outs[0], outs[1], bounds[:-1], bounds[1:],
+                     tuple(outs[2:]))
 
 
 def fluid_sort(state: ParticleState, params: FluidParams,
@@ -137,15 +182,16 @@ def build(state: ParticleState, params: FluidParams,
 
     Every field moves with its row, so the state stays in sorted order and
     ``orig_id`` keeps each particle's identity, as the JAX engine's does
-    (``pallas_sweeps.py:1205-1206``).  pos and vel move in the cell table;
-    the other fields are carried by torch gathers."""
+    (``pallas_sweeps.py:1205-1206``); all of them move in the cell table's
+    one launch."""
     nx, ny, nz = dims
     skey, order = fluid_sort(state, params, dims)
-    tbl = cell_table(skey, order, state.pos, state.vel, nx * ny * nz)
-    fields = {f.name: getattr(state, f.name)[order]
-              for f in dataclasses.fields(state)
-              if f.name not in ("pos", "vel")}
-    s = ParticleState(pos=tbl.pos, vel=tbl.vel, **fields)
+    names = [f.name for f in dataclasses.fields(state)
+             if f.name not in ("pos", "vel")]
+    tbl = cell_table(skey, order, state.pos, state.vel, nx * ny * nz,
+                     carry=[getattr(state, f) for f in names])
+    s = ParticleState(pos=tbl.pos, vel=tbl.vel,
+                      **dict(zip(names, tbl.carried)))
     return CellRows(s, skey, tbl.cell_start, tbl.cell_end)
 
 
@@ -156,6 +202,7 @@ class GhostRows(NamedTuple):
     ghost_start: torch.Tensor  # [num_cells] i32
     ghost_end: torch.Tensor    # [num_cells] i32
     records: torch.Tensor      # [2,G,4] the force sweep's source records
+    near: torch.Tensor         # [num_cells] u8: a ghost in the 3x3x3 block
 
     @property
     def count(self) -> int:
@@ -176,15 +223,28 @@ def ghost_records(pos: torch.Tensor, rho0, mass) -> torch.Tensor:
     return rec
 
 
+def ghost_near(ghost_start: torch.Tensor, ghost_end: torch.Tensor,
+               dims: Tuple[int, int, int]) -> torch.Tensor:
+    """[num_cells] uint8: whether any cell of the cell's 3x3x3 block holds a
+    ghost.  The density kernel walks the ghost ranges only where it does;
+    most fluid rows lie further than a cell from every wall."""
+    nx, ny, nz = dims
+    has = (ghost_end > ghost_start).reshape(1, 1, ny, nz, nx).float()
+    near = torch.nn.functional.max_pool3d(has, 3, stride=1, padding=1)
+    return (near > 0).reshape(-1).to(torch.uint8)
+
+
 def build_ghosts(state: ParticleState, params: FluidParams,
                  dims: Tuple[int, int, int]) -> GhostRows:
     """The ghost structure (counterpart of ``planes.build_ghost_tables``):
     the rows that are valid, ghosts and on an active face, with the same
     y-major key, a stable sort and the same cell table, and their source
-    records for the force sweep.  Ghosts never move and face activation is
-    fixed within a run, so this is built once per ``run_substeps``."""
+    records for the force sweep and the cells near a ghost.  Ghosts never
+    move and face activation is fixed within a run, so this is built once
+    per ``run_substeps``."""
     nx, ny, nz = dims
     skey, order = ghost_sort(state, params, dims)
     tbl = cell_table(skey, order, state.pos, None, nx * ny * nz)
     return GhostRows(tbl.pos, tbl.cell_start, tbl.cell_end,
-                     ghost_records(tbl.pos, params.rest_density, params.mass))
+                     ghost_records(tbl.pos, params.rest_density, params.mass),
+                     ghost_near(tbl.cell_start, tbl.cell_end, dims))

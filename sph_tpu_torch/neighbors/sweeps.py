@@ -336,15 +336,24 @@ def _check_rows(key, pos, cell_start, cell_end, pv: SweepParams,
               dev)
         check("ghost records", ghosts.records, torch.float32,
               (2, ghosts.count, 4), dev)
+        check("ghost near", ghosts.near, torch.uint8, (pv.num_cells,), dev)
 
 
 def _ghost_args(ghosts: Optional[GhostRows]):
-    """The kernels' ghost arguments: pos, start, end pointers and the flag
-    (the force kernels take all but pos, which is in the source records)."""
+    """The force kernels' ghost arguments: the ranges' start and end
+    pointers and the flag (the ghosts' rows are in the source records)."""
     if ghosts is None:
-        return None, None, None, 0
+        return None, None, 0
+    return ghosts.ghost_start.data_ptr(), ghosts.ghost_end.data_ptr(), 1
+
+
+def _density_ghost_args(ghosts: Optional[GhostRows]):
+    """The density kernel's ghost arguments: the positions, the ranges'
+    start and end, and the cells near a ghost; all null without ghosts."""
+    if ghosts is None:
+        return None, None, None, None
     return (ghosts.pos.data_ptr(), ghosts.ghost_start.data_ptr(),
-            ghosts.ghost_end.data_ptr(), 1)
+            ghosts.ghost_end.data_ptr(), ghosts.near.data_ptr())
 
 
 def c_params(pv: SweepParams) -> build.SweepParamsC:
@@ -362,8 +371,8 @@ def _launch_density(key, pos, vel, cell_start, cell_end, pv: SweepParams,
     err = lib.sph_density(
         key.data_ptr(), pos.data_ptr(),
         None if vel is None else vel.data_ptr(), cell_start.data_ptr(),
-        cell_end.data_ptr(), n, *_ghost_args(ghosts), ctypes.byref(prm),
-        rho.data_ptr(), pres.data_ptr(),
+        cell_end.data_ptr(), n, *_density_ghost_args(ghosts),
+        ctypes.byref(prm), rho.data_ptr(), pres.data_ptr(),
         None if src is None else src.data_ptr(),
         0 if src is None else src.shape[1],
         torch.cuda.current_stream(key.device).cuda_stream)
@@ -432,7 +441,7 @@ def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
     prm = c_params(pv)
     err = lib.sph_force_xsph(
         key.data_ptr(), src.data_ptr(), src.shape[1], cell_start.data_ptr(),
-        cell_end.data_ptr(), key.shape[0], *_ghost_args(ghosts)[1:],
+        cell_end.data_ptr(), key.shape[0], *_ghost_args(ghosts),
         ctypes.byref(prm), npos.data_ptr(), nvel.data_ptr(), acc.data_ptr(),
         torch.cuda.current_stream(key.device).cuda_stream)
     build.launched(LAUNCHES, "force_xsph", err)
@@ -455,7 +464,7 @@ def force_xsph_emit(key, pos, vel, rho, cell_start, cell_end,
     prm = c_params(pv)
     err = lib.sph_force_xsph_emit(
         key.data_ptr(), src.data_ptr(), src.shape[1], cell_start.data_ptr(),
-        cell_end.data_ptr(), n, *_ghost_args(ghosts)[1:], ctypes.byref(prm),
+        cell_end.data_ptr(), n, *_ghost_args(ghosts), ctypes.byref(prm),
         per.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
     build.launched(LAUNCHES, "force_xsph_emit", err)
     return per

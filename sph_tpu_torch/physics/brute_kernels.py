@@ -20,6 +20,7 @@ self pair is excluded by row index, as in the TPU kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -187,10 +188,21 @@ def force(pos, vel, rho, pres, contrib, pv: SweepParams):
 # substep composition
 # ---------------------------------------------------------------------------
 
-def substep(state: ParticleState, params: FluidParams, dt) -> ParticleState:
+def prepare(params: FluidParams, dt) -> SweepParams:
+    """The kernels' constants (the grid dims go unread).  Deriving them
+    brings 15 scalars from the device to the host, so
+    ``engine.run_substeps`` does it once, before its loop."""
+    return make_pvec(params, dt, (0, 0, 0))
+
+
+def substep(state: ParticleState, params: FluidParams, dt,
+            pv: Optional[SweepParams] = None) -> ParticleState:
     """One all-pairs substep through the kernels, ``brute_pallas.substep``
-    (``:244-295``) line for line.  Rows stay in place: no sort."""
-    pv = make_pvec(params, dt, (0, 0, 0))     # the grid dims go unread
+    (``:244-295``) line for line.  Rows stay in place: no sort.  ``pv`` is
+    :func:`prepare`'s result when the caller has it; a caller without one
+    has it derived here, which waits for the device."""
+    if pv is None:
+        pv = prepare(params, dt)
     contrib = state.contrib_mask(params.ghost_face_active)
     contrib_f = contrib.to(torch.float32)
 

@@ -46,8 +46,8 @@ def apply_container(state: ParticleState, params: FluidParams) -> ParticleState:
         raise NotImplementedError(
             f"shape_type {params.shape_type} "
             f"({P.SHAPE_NAMES[params.shape_type]}): only the box container "
-            "is ported; see ROADMAP queue 1 item 6 (the other 9 shape "
-            "projectors)")
+            "is ported; see ROADMAP queue 1, 'The other 9 container "
+            "shapes'")
     rot = rotation_matrix(params.box_euler_deg)          # world_from_box
     rel = state.pos - params.box_center[None, :]
     p_local = rel @ rot                                  # R^T p per row

@@ -297,6 +297,40 @@ def test_substep_feeds_the_kernels_what_they_take(monkeypatch):
     assert seen == ["density_raw_plain", "force_plain"] * 2
 
 
+@pytest.mark.parametrize("case", ["dam_break", "ghost_shell_open_top"])
+def test_run_substeps_derives_the_sweep_params_once(monkeypatch, case):
+    """``run_substeps`` brings the kernels' constants to the host once, before
+    its loop (``make_pvec`` waits for the device), and its state is
+    bit-equal to as many calls of ``brute_kernels.substep`` that each derive
+    them, with the container pass after each."""
+    from sph_tpu_torch.physics import constraints
+    calls = []
+    real = BK.make_pvec
+
+    def counted(*args):
+        calls.append(args[2])
+        return real(*args)
+
+    monkeypatch.setattr(BK, "make_pvec", counted)
+    sd, pd, dims = case_numpy(case, warm=1)
+    ts, tp, _, _ = kernel_inputs(sd, pd)
+    cfg = SimConfig(n=ts.n, grid_dims=dims, neighbor_impl="brute_kernel")
+    got = TSTEP.run_substeps(ts, tp, tp.dt, 4, cfg)
+    assert calls == [(0, 0, 0)]
+    del calls[:]
+    want = ts
+    for _ in range(4):
+        want = constraints.apply_container(BK.substep(want, tp, tp.dt), tp)
+    assert len(calls) == 4
+    for f in dataclasses.fields(got):
+        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+    # the prepared params are what a substep derives for itself
+    assert BK.prepare(tp, tp.dt) == real(tp, tp.dt, (0, 0, 0))
+    assert TSTEP.neighbor_aux(ts, tp, tp.dt, cfg) == BK.prepare(tp, tp.dt)
+    assert TSTEP.neighbor_aux(ts, tp, tp.dt, dataclasses.replace(
+        cfg, neighbor_impl="brute")) is None
+
+
 # ---------------------------------------------------------------------------
 # kernels against the plain versions (CUDA only)
 # ---------------------------------------------------------------------------

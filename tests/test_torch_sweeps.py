@@ -650,6 +650,84 @@ def test_force_xsph_plain_matches_all_pairs_on_blocking_fixtures(name):
                                atol=ACC_ATOL)
 
 
+def light(pv):
+    """The sweep params with 0.4 of the mass: a row with nothing in reach
+    but itself (962 at the derived mass) then falls below the floor."""
+    return dataclasses.replace(pv, mass=float(np.float32(0.4 * pv.mass)))
+
+
+@pytest.mark.parametrize("name", BLOCKING)
+def test_density_plain_matches_all_pairs_on_blocking_fixtures(name):
+    """The density sweep's plain version against the all-pairs plain
+    version (``brute_kernels.density_raw_plain``, held to the JAX kernel in
+    test_torch_brute.py) with the oracle's floor: every source within h lies
+    in the 9 ranges, in a crowded cell, at the grid's faces (clamped block)
+    and with ghosts on some faces; a row with nothing in reach but itself
+    sits on the floor; non-fluid rows get 0."""
+    from sph_tpu_torch.physics import brute_kernels as BK
+    (key, pos, _, _, cs, ce, pv, ghosts), s = blocking_inputs(name)
+    if name == "single":
+        pv = light(pv)
+    rho, pres = sweeps.density(key, pos, cs, ce, pv, ghosts)
+    m = s.fluid_mask()
+    assert bool((rho[~m] == 0).all()) and bool((pres[~m] == 0).all())
+    if not bool(m.any()):
+        return
+    src = m.clone()
+    if ghosts is not None:
+        src |= (s.ghost > 0) & s.contrib_mask(
+            torch.as_tensor(blocking_case(name)[3]))
+    raw = BK.density_raw_plain(pos, src.float(), pv)
+    want = torch.clamp_min(raw, pv.rho_floor)
+    np.testing.assert_allclose(rho[m], want[m], rtol=RHO_RTOL, atol=RHO_ATOL)
+    np.testing.assert_allclose(
+        pres[m], torch.clamp_min(pv.gas_k * (want[m] - pv.rho0), 0.0),
+        rtol=1e-4, atol=RHO_ATOL * pv.gas_k)
+    if name == "single":
+        assert float(rho[m][0]) == pv.rho_floor
+    if name == "crowded_cell":
+        assert float(rho.max()) > 50 * pv.rho0
+
+
+DENSITY_CARD = BLOCKING + ["ghost_shell_all_faces"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", DENSITY_CARD)
+def test_density_kernel_on_blocking_fixtures_on_cuda(cuda, name):
+    """The density kernel against its plain version on the fixtures built to
+    break a kernel's blocking: a cell of 2,400 rows, a lone row (the floor),
+    full grid rows at the grid's faces (clamped block), no fluid, ghosts on
+    three faces, and the ghost shell with all six faces on; rho and pres
+    bit-equal with and without the source records, the records bit-equal to
+    the plain packing, and a second launch bit-equal to the first."""
+    if name == "ghost_shell_all_faces":
+        state, params, dims = port_inputs("ghost_shell", device=cuda)
+        (key, pos, vel, cs, ce), _, pv, g = sweep_inputs(state, params, dims)
+        assert g is not None and int(g.near.sum()) > 0
+    else:
+        (key, pos, vel, _, cs, ce, pv, g), _ = blocking_inputs(
+            name, device=cuda, crowd=CROWD_CARD)
+    if name == "single":
+        pv = light(pv)
+    sweeps.reset_launches()
+    rho_p, pres_p = sweeps.density_plain(key, pos, cs, ce, pv, g)
+    rho, pres = sweeps.density(key, pos, cs, ce, pv, g)
+    rho_s, pres_s, src = sweeps.density_sources(key, pos, vel, cs, ce, pv, g)
+    again = sweeps.density_sources(key, pos, vel, cs, ce, pv, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(rho, rho_p, rtol=RHO_RTOL, atol=RHO_ATOL)
+    torch.testing.assert_close(pres, pres_p, rtol=1e-4,
+                               atol=RHO_ATOL * pv.gas_k)
+    assert torch.equal(rho_s, rho) and torch.equal(pres_s, pres)
+    assert torch.equal(src, sweeps.pack_sources(pos, vel, rho, pv, g))
+    for a, b in zip(again, (rho_s, pres_s, src)):
+        assert torch.equal(a, b)
+    if name == "single":
+        assert float(rho[key < pv.num_cells][0]) == pv.rho_floor
+    assert sweeps.LAUNCHES["density"] == 3
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", BLOCKING)
 def test_force_kernels_on_blocking_fixtures_on_cuda(cuda, name):
