@@ -29,6 +29,9 @@ prints no result line):
              emitted-row force kernel against its plain version, timed
              likewise, then 16 substeps with ``emit_rows`` and 16 without
              from one state, bit-identical;
+4b. 4M     — the three cell-engine kernels as in phase 3 on the full
+             ``export_4m`` state (4,000,000 rows, 208^3 cells), their plain
+             versions timed over one run;
 5. small   — the cell engine (kernels) and the all-pairs engine (kernels)
              against the all-pairs oracle over 20 substeps of a 2k dam
              break and of a 512-particle box inside a ghost shell (the
@@ -36,16 +39,24 @@ prints no result line):
              place);
 6. main    — ``configs.build`` with no device (the card is the default)
              then 4 frames of ``run_substeps(frame_prologue(state), ...,
-             16)`` for ``default_131k``, ``ghost_1m``, ``dam_break_8k`` and
+             16)`` for ``default_131k``, ``ghost_1m``, ``dam_break_8k``,
              ``rotated_512k`` (the wave before every frame, the emitted-row
-             transport): the first frame warms up, the other 48 substeps
-             are timed, with every kernel's launch count, the physical
-             invariants, the ghosts' invariants and the fluid density
-             against the JAX reference checked;
+             transport) and ``export_4m``: the first frame warms up, the
+             other 48 substeps are timed, with every kernel's launch count,
+             the physical invariants, the ghosts' invariants and the fluid
+             density against the JAX reference checked (``export_4m`` has
+             no JAX reference: ROADMAP R10), and the peak device memory;
+6b. export — the frame export of ``app.bench.export_frames`` on the final
+             ``export_4m`` state: four PNGs read back and drawn on, the
+             colors on the card equal to the port's colors of the same
+             state on the CPU, and the host rasterizer against its plain
+             version on a subsample;
 7. micro   — ``app.microbench.main`` and ``app.proto_expand.main`` (the
              entry points of the micro-kernels) with their launch counts,
              then each micro-kernel bit-equal to its plain version at the
              scripts' default sizes, timed likewise.
+
+Each phase logs its seconds.
 
 The last lines are the kernels' JSON record (each kernel with the
 configuration or path whose launches and times it reports;
@@ -83,7 +94,9 @@ REF_RHO = {
     "dam_break_8k": (4864.46240234375, 1669.9207237884402),
     "rotated_512k": (5185.92529296875, 1413.0148309509968),
 }
-CONFIGS = tuple(REF_RHO)     # the main paths, in the order they are driven
+# the main paths, in the order they are driven; a JAX density reference at
+# export_4m is out of reach (ROADMAP R10), so it has no REF_RHO entry
+CONFIGS = (*REF_RHO, "export_4m")
 # main paths that take the emitted-row transport (SimConfig.emit_rows),
 # as ``SPH_EMIT_ROWS=1 python bench.py rotated_512k`` does in the JAX package
 EMIT_ROWS = ("rotated_512k",)
@@ -311,8 +324,10 @@ def check_cell_tables(config, state, params, cfg, ghosts):
     return fluid, carry, r
 
 
-def phase_kernels(dev, config):
-    """Each kernel against its plain version at full ``config``."""
+def phase_kernels(dev, config, plain_reps=5):
+    """Each kernel against its plain version at full ``config``; the plain
+    sweeps (row chunks, seconds a run at 4M) timed over ``plain_reps``
+    runs."""
     import torch
     from sph_tpu_torch.app.microbench import time_ms
     from sph_tpu_torch.app import configs
@@ -414,12 +429,13 @@ def phase_kernels(dev, config):
             time_ms(lambda: sweeps.density_sources(key, pos, vel, cs, ce, pv,
                                                    ghosts), 50),
             time_ms(lambda: sweeps.density_plain(key, pos, cs, ce, pv,
-                                                 ghosts), 5)),
+                                                 ghosts), plain_reps)),
         "force_xsph": (
             time_ms(lambda: sweeps.force_xsph(key, pos, vel, rho_p, cs, ce,
                                               pv, ghosts, src_p), 50),
             time_ms(lambda: sweeps.force_xsph_plain(key, pos, vel, rho_p, cs,
-                                                    ce, pv, ghosts), 5)),
+                                                    ce, pv, ghosts),
+                    plain_reps)),
     }
     log(f"{config} density without the source records: "
         f"{time_ms(lambda: sweeps.density(key, pos, cs, ce, pv, ghosts), 50)!r}"
@@ -882,6 +898,7 @@ def phase_main(dev, config):
     from sph_tpu_torch.core.params import rotation_matrix
     from sph_tpu_torch.engine.step import run_substeps
 
+    torch.cuda.reset_peak_memory_stats(dev)
     start, params, cfg = configs.build(config)
     if start.pos.device != dev or params.h.device != dev:
         raise AssertionError(f"{config}: configs.build put the state on "
@@ -938,13 +955,18 @@ def phase_main(dev, config):
         f"[{rho_min!r}, {rho_max!r}], mean {rho_mean!r}, max |v| {vmax!r}")
     if not rho_min >= 0.5 * rho0 - 1e-3:
         raise AssertionError(f"{config}: density {rho_min} below the floor")
-    for name, got, want, rtol in (
-            ("max", rho_max, REF_RHO[config][0], 0.02),
-            ("mean", rho_mean, REF_RHO[config][1], 0.005)):
-        if not abs(got - want) <= rtol * want:
-            raise AssertionError(f"{config}: fluid density {name} {got} is "
-                                 f"not within {rtol} of the reference's "
-                                 f"{want}")
+    ref = REF_RHO.get(config)
+    if ref is None:
+        log(f"main path {config}: the density is not held to a JAX reference "
+            f"(none is within reach at this size, ROADMAP R10); the other "
+            f"checks stand")
+    else:
+        for name, got, want, rtol in (("max", rho_max, ref[0], 0.02),
+                                      ("mean", rho_mean, ref[1], 0.005)):
+            if not abs(got - want) <= rtol * want:
+                raise AssertionError(f"{config}: fluid density {name} {got} "
+                                     f"is not within {rtol} of the "
+                                     f"reference's {want}")
     if not vmax <= 0.4 * h / dtf * (1 + 1e-4):
         raise AssertionError(f"{config}: speed {vmax} above the CFL cap")
     local = (pos - params.box_center) @ rotation_matrix(params.box_euler_deg)
@@ -960,8 +982,104 @@ def phase_main(dev, config):
     rate = n_fluid * timed / wall
     log(f"main path {config}: {ms!r} ms/substep, {rate!r} particle-steps/s "
         f"(host clock over {timed} substeps and their frames' prologues, "
-        f"after a frame of warm-up) on {card_line()}")
-    return counts
+        f"after a frame of warm-up); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev)} bytes (build and run) on "
+        f"{card_line()}")
+    return counts, state
+
+
+EXPORT_SUBSAMPLE = 2000      # every 2000th row for the rasterizer check
+
+
+def phase_export(dev, state, config):
+    """The frame export of ``app.bench.export_frames`` on ``state``, the
+    final state of ``config``'s main path, into a temporary directory: each
+    PNG read back (``viz.splat.read_png``), 960x540 and not all background;
+    the colors of each exported drive computed on the card equal to the
+    port's colors of the same state on the CPU within 1e-5 (palette 1 has
+    no hash); the host rasterizer against its plain version on a subsample
+    at 240x135 with the export's point size, under 2% of pixels off by more
+    than 2/255 (tests/test_viz.py).  (Discs of a few pixels overlap nearly
+    everywhere in this dense block, where the plain version, which writes
+    offset by offset, keeps other colors than the rasterizer: the tests
+    hold that case on a sparse 2k state.)"""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from sph_tpu_torch.app import bench, configs
+    from sph_tpu_torch.viz import palettes, splat
+    from sph_tpu_torch.viz.camera import fit_camera
+
+    cfg = configs.CONFIGS[config]
+    n_fluid = int(state.fluid_mask().sum())
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        paths = bench.export_frames(state, cfg, out)
+        seconds = time.perf_counter() - t0
+        background = np.asarray([7, 10, 15], np.uint8)   # splat's default
+        for path in paths:
+            img = splat.read_png(path)
+            if img.shape != (540, 960, 3):
+                raise AssertionError(f"{path}: shape {img.shape}")
+            drawn = float((img != background).any(axis=-1).mean())
+            if not drawn >= 1e-3:
+                raise AssertionError(f"{path}: {drawn} of the pixels drawn")
+            log(f"export {config}: {os.path.basename(path)} read back, "
+                f"{os.path.getsize(path)} bytes, {drawn!r} of the pixels "
+                f"drawn")
+    log(f"export {config}: {len(paths)} frames of {n_fluid} particles in "
+        f"{seconds!r} s (colors on the card; projection, sort, rasterizer "
+        f"and PNG on the host)")
+
+    cam = fit_camera(np.asarray(cfg.box_half, np.float32))
+    view = cam.view_matrix()
+    host = {f: getattr(state, f).cpu() for f in (
+        "pos", "vel", "pressure", "density", "color_group")}
+    vpos = host["pos"].numpy() @ view[:3, :3].T + view[:3, 3]
+    errs = []
+    for mode, drive in bench.EXPORT_DRIVES:
+        vp = bench.export_params(cfg, mode)
+        card = palettes.particle_colors(
+            vp, state.pos, torch.as_tensor(vpos, device=dev), state.vel,
+            state.pressure, state.density, state.color_group)
+        cpu = palettes.particle_colors(
+            vp, host["pos"], torch.as_tensor(vpos), host["vel"],
+            host["pressure"], host["density"], host["color_group"])
+        if card.device != dev:
+            raise AssertionError(f"{drive} colors computed on {card.device}")
+        errs.append(max_err(card.cpu(), cpu))
+        if not errs[-1] <= 1e-5:
+            raise AssertionError(f"export {config} {drive}: colors on the "
+                                 f"card differ from the CPU's by {errs[-1]}")
+    log(f"export {config}: colors on the card against the CPU, max abs err "
+        f"{dict(zip((d for _, d in bench.EXPORT_DRIVES), errs))}")
+
+    sub = state.replace(**{f.name: getattr(state, f.name)[::EXPORT_SUBSAMPLE]
+                           for f in dataclasses.fields(state)})
+    vp = bench.export_params(cfg, palettes.DRIVE_SPEED)
+    a, b = (render(sub, vp, cam, width=240, height=135,
+                   particle_radius=0.5 * cfg.h)
+            for render in (splat.render_frame, splat.render_frame_plain))
+    off = float((np.abs(a.astype(int) - b.astype(int)) > 2).any(
+        axis=-1).mean())
+    if not off < 0.02:
+        raise AssertionError(f"export {config}: the rasterizer and its plain "
+                             f"version differ on {off} of the pixels")
+    log(f"export {config}: rasterizer against its plain version on "
+        f"{int(sub.pos.shape[0])} rows at 240x135: {off!r} of the pixels off "
+        f"by more than 2/255, {float((a != background).any(axis=-1).mean())!r}"
+        f" drawn")
+
+
+def timed(name, fn, *args, **kw):
+    """``fn(*args, **kw)``, with its seconds logged."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    log(f"phase {name}: {time.perf_counter() - t0!r} s")
+    return out
 
 
 def main() -> int:
@@ -970,6 +1088,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
         return 1
+    from sph_tpu_torch.app import configs
     from sph_tpu_torch.core.device import card_line
     from sph_tpu_torch.native import build
 
@@ -983,14 +1102,27 @@ def main() -> int:
     build.library()
     log(f"build: {time.perf_counter() - t0!r} s")
 
-    measured = {"default_131k": phase_kernels(dev, "default_131k"),
-                "ghost_1m": phase_kernels(dev, "ghost_1m"),
-                "dam_break_8k": phase_kernels_brute(dev, "dam_break_8k"),
-                "rotated_512k": phase_emit(dev, "rotated_512k")}
-    phase_crowded(dev)
-    phase_small(dev)
-    counts = {config: phase_main(dev, config) for config in CONFIGS}
-    measured["micro"], counts["micro"] = phase_micro(dev)
+    measured = {
+        "default_131k": timed("kernels default_131k", phase_kernels, dev,
+                              "default_131k"),
+        "ghost_1m": timed("kernels ghost_1m", phase_kernels, dev, "ghost_1m"),
+        "dam_break_8k": timed("kernels dam_break_8k", phase_kernels_brute,
+                              dev, "dam_break_8k"),
+        "rotated_512k": timed("emit rotated_512k", phase_emit, dev,
+                              "rotated_512k"),
+        # logged only: the kernels' record keeps its configurations
+        "export_4m": timed("kernels export_4m", phase_kernels, dev,
+                           "export_4m", plain_reps=1)}
+    timed("crowded", phase_crowded, dev)
+    timed("small", phase_small, dev)
+    counts = {}
+    for config in CONFIGS:
+        counts[config], final = timed(f"main {config}", phase_main, dev,
+                                      config)
+        if configs.CONFIGS[config].viz_export:
+            timed(f"export {config}", phase_export, dev, final, config)
+        del final
+    measured["micro"], counts["micro"] = timed("micro", phase_micro, dev)
 
     # each kernel's errors, times and bound at the configuration named in
     # KERNELS, and its launches in that configuration's main path (or, for

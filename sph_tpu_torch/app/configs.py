@@ -7,11 +7,12 @@
 4. ghost_1m       — 1M particles with ghost boundary shells.
 5. export_4m      — 4M particles with headless frame export.
 
-All five are kept as data; ``build`` raises for the parts of a
-configuration that are not ported yet, so today every configuration but
-``export_4m`` builds as configured.  ``frame_prologue`` is what runs
-before every frame of substeps (``bench.py:79-88``): the wave impulse for
-``rotated_512k``, nothing for the others.
+All five build as configured; ``build`` raises for an engine that is
+not ported.  ``export_4m``'s frame export (``viz_export``) is
+``app/bench.export_frames``, which the bench runs after its timed frames.
+``frame_prologue`` is what runs before every frame of substeps
+(``bench.py:79-88``): the wave impulse for ``rotated_512k``, nothing for
+the others.
 """
 from __future__ import annotations
 
@@ -67,11 +68,6 @@ CONFIGS = {
 _IMPL = {"pallas": "cell", "cell": "cell", "brute": "brute",
          "brute_pallas": "brute_kernel", "brute_kernel": "brute_kernel"}
 
-_NOT_PORTED = {
-    "viz_export": "headless frame export: ROADMAP queue 1 item 5 "
-                  "(export_4m)",
-}
-
 
 def build(cfg: Union[str, BenchConfig], seed: int = 0,
           neighbor_impl: Optional[str] = None, device=None):
@@ -83,9 +79,6 @@ def build(cfg: Union[str, BenchConfig], seed: int = 0,
     ``device=None`` raises (``core.device.resolve``)."""
     if isinstance(cfg, str):
         cfg = CONFIGS[cfg]
-    for flag, what in _NOT_PORTED.items():
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"{cfg.name}: {what} is not ported yet")
     impl = neighbor_impl or cfg.neighbor_impl
     if impl not in _IMPL:
         raise NotImplementedError(

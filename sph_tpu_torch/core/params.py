@@ -194,12 +194,12 @@ def effective_half(params: FluidParams) -> torch.Tensor:
     """Container half extents seen by the grid (``SPHFluid3D.h:125-141``).
 
     Only the box is ported; the other shapes come with ROADMAP queue 1
-    item 6 ("the other 9 shape projectors")."""
+    item 4 ("The other 9 container shapes")."""
     if params.shape_type != SHAPE_BOX:
         raise NotImplementedError(
             f"shape_type {params.shape_type} "
             f"({SHAPE_NAMES[params.shape_type]}): only the box is ported; "
-            "see ROADMAP queue 1 item 6 (the other 9 shape projectors)")
+            "see ROADMAP queue 1 item 4 (the other 9 container shapes)")
     return params.box_half
 
 

@@ -1,9 +1,10 @@
-"""Build ``csrc/*.cu`` with nvcc and load it with ctypes.
+"""Build ``csrc/*.cu`` with nvcc, and the host C++ of ``native/`` with
+g++, and load them with ctypes.
 
 Counterpart of ``sph_tpu/native/__init__.py:23-51``, with no fallback:
-a missing ``nvcc`` or a failed build raises.  The library is built at
-first use into ``sph_tpu_torch/_build/``, named by a hash of the sources
-and the flags, so an edited source builds anew and an unchanged one is
+a missing compiler or a failed build raises.  Each library is built at
+first use into ``sph_tpu_torch/_build/``, named by a hash of its sources
+and flags, so an edited source builds anew and an unchanged one is
 loaded as it is.  Each ``.cu`` is compiled by its own ``nvcc``, all at
 once, and the objects are then linked into one shared library.  The
 kernel wrappers share its input check and launch count
@@ -21,10 +22,13 @@ import tempfile
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
+NATIVE_DIR = os.path.join(_PKG, "native")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+# the host libraries' flags, as sph_tpu/native/__init__.py:34
+CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 
 class SweepParamsC(ctypes.Structure):
@@ -131,6 +135,42 @@ def library() -> ctypes.CDLL:
     lib.sph_smoke.restype = i
     lib.sph_expand.argtypes = [p, p, i, i, i, i, p, p]
     lib.sph_expand.restype = i
+    return lib
+
+
+def host_library_path(name: str) -> str:
+    """Build ``native/<name>.cpp`` with g++ if it is not built yet; return
+    the shared library's path."""
+    src = os.path.join(NATIVE_DIR, f"{name}.cpp")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(" ".join(CXX_FLAGS).encode() + f.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"g++ not found on PATH: {name}.cpp cannot be "
+                           f"built")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [cxx, *CXX_FLAGS, src, "-o", lib]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"g++ failed ({res.returncode}): "
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        os.replace(lib, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def splat_library() -> ctypes.CDLL:
+    """The host painter-splat rasterizer (``native/splat_raster.cpp``)
+    with its C signature declared."""
+    lib = ctypes.CDLL(host_library_path("splat_raster"))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.splat_raster.argtypes = [i, p, p, p, p, i, i, p, i, p, p, i, p, p]
+    lib.splat_raster.restype = None
     return lib
 
 

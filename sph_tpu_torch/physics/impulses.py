@@ -4,7 +4,7 @@ The reference dispatches its impulse shaders once per *frame*, with the
 kicks pre-multiplied by dt on the host (``SPHFluid3D.cpp:532-638``,
 ``Scene0p.cpp:3133-3214``).  Only the wave (``WaveImpulse.comp``), which
 ``rotated_512k`` applies before every frame, is ported; vortex, attractor,
-curl flow and stencil are ROADMAP queue 1 item 8.  Ghosts and padding are
+curl flow and stencil are ROADMAP queue 1 item 6.  Ghosts and padding are
 skipped.
 """
 from __future__ import annotations

@@ -74,3 +74,25 @@ def test_without_a_card_the_default_device_raises():
         pytest.skip("this machine has a card")
     with pytest.raises(RuntimeError, match="cpu"):
         bench.run(TINY, 1)
+
+
+def test_run_exports_the_frames(tmp_path, monkeypatch, capsys):
+    """A configuration with ``viz_export`` writes bench.py's four frames to
+    bench_frames/ (under the working directory) after the timed frames:
+    960x540 PNGs that decode and are not background; the JSON line keeps
+    its four fields."""
+    from sph_tpu_torch.viz.splat import read_png
+    monkeypatch.chdir(tmp_path)
+    cfg = BenchConfig(name="tiny_export", n_target=2048,
+                      box_half=(7.0, 7.0, 7.0), viz_export=True)
+    rec = bench.run(cfg, 2, device="cpu", frames=1)
+    assert list(rec) == ["metric", "value", "unit", "vs_baseline"]
+    names = sorted(p.name for p in (tmp_path / "bench_frames").iterdir())
+    assert names == sorted(f"tiny_export_{d}.png" for d in
+                           ("height", "speed", "pressure", "density"))
+    for name in names:
+        img = read_png(str(tmp_path / "bench_frames" / name))
+        assert img.shape == (540, 960, 3)
+        drawn = (img != img[0, 0]).any(axis=-1).sum()
+        assert (img[0, 0] == [7, 10, 15]).all() and drawn > 500, name
+    assert "viz export (4 drives, 2048 particles)" in capsys.readouterr().err
