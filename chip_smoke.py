@@ -19,11 +19,11 @@ prints no result line):
              substep), the two all-pairs kernels; each timed with CUDA events beside its plain
              version, with its bound (the least time the card could take
              for the same work) and the share of it that it reaches; a
-             second launch of each force kernel must be bit-equal to the
-             first; the density kernel's source records bit-equal to the
-             plain packing; then the density kernel and both cell-engine
-             force kernels on a state with 2,400 rows in one cell, against
-             the plain versions;
+             second launch of each force kernel and of the all-pairs
+             density kernel must be bit-equal to the first; the density
+             kernel's source records bit-equal to the plain packing; then
+             the density kernel and both cell-engine force kernels on a
+             state with 2,400 rows in one cell, against the plain versions;
 4. emit    — on the full ``rotated_512k`` state (after the wave and one
              plain substep), the cell table bit-equal as above, then the
              emitted-row force kernel against its plain version, timed
@@ -46,6 +46,9 @@ prints no result line):
              the physical invariants, the ghosts' invariants and the fluid
              density against the JAX reference checked (``export_4m`` has
              no JAX reference: ROADMAP R10), and the peak device memory;
+             on ``dam_break_8k``'s final state the all-pairs density kernel
+             is held to its plain version, a second launch bit-equal, and
+             timed again beside its count of pairs within h and its bound;
 6b. export — the frame export of ``app.bench.export_frames`` on the final
              ``export_4m`` state: four PNGs read back and drawn on, the
              colors on the card equal to the port's colors of the same
@@ -135,12 +138,16 @@ KERNELS = {
 PEAK_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # float32 operations per pair, counted from the kernels' source
-# (csrc/sweeps.cu, csrc/brute.cu): the distance test that every tested
-# pair pays (3 sub, 3 mul, 2 add, 1 compare), and the pair math of a pair
+# (csrc/sweeps.cu, csrc/brute.cu; an FFMA is two): the distance test that
+# every tested pair pays, from the differences in the cell kernels and the
+# all-pairs force kernel (3 sub, 3 mul, 2 add, 1 compare), and in the
+# expanded form, |p_j|^2 - 2 p_i.p_j against the row's limit, in the
+# all-pairs density kernel (3 FFMA, 1 add); and the pair math of a pair
 # within h (density: h2 - r2, d*d*d, the contrib weight, the add;
 # force: rsqrt, r, the r < h test, m/rho, the spiky and viscosity terms
 # and the three accumulators; XSPH: poly6, m/rho, the sum and the norm).
 OPS_TEST = 9
+OPS_TEST_EXPANDED = 7
 OPS_DENSITY_NEAR = 5
 OPS_FORCE_NEAR = 41
 OPS_XSPH_NEAR = 17
@@ -582,8 +589,11 @@ def phase_kernels_brute(dev, config):
     torch.cuda.synchronize()
     err_rho = check_close("brute_density rho_raw", raw_k, raw_p, RHO_RTOL,
                           RHO_ATOL)
+    check_repeat(f"{config} brute_density", (raw_k,),
+                 lambda: (BK.density_raw(pos, cf, pv),))
     log(f"{config} brute_density: max|rho_raw err| {err_rho!r}, rho_raw "
-        f"range [{float(raw_p.min())!r}, {float(raw_p.max())!r}]")
+        f"range [{float(raw_p.min())!r}, {float(raw_p.max())!r}]; a second "
+        f"launch is bit-equal")
 
     rho, pres = C.finish_density(raw_p, state.ghost, contrib, state.density,
                                  state.pressure, params)
@@ -603,7 +613,7 @@ def phase_kernels_brute(dev, config):
         f"within h (density), {near_f} (force), {near_x} (XSPH)")
     work = {
         # pos, contrib in; rho_raw out
-        "brute_density": (20 * n, OPS_TEST * tested
+        "brute_density": (20 * n, OPS_TEST_EXPANDED * tested
                           + OPS_DENSITY_NEAR * near_d),
         # pos, vel, rho, pres, contrib in; npos, nvel, acc out
         "brute_force": (36 * n + 36 * n, 2 * OPS_TEST * tested
@@ -622,6 +632,38 @@ def phase_kernels_brute(dev, config):
     return {name: {"max_abs_err": errs[name],
                    **report(config, name, *times[name], *work[name], n)}
             for name in times}
+
+
+def phase_brute_final(dev, state, config):
+    """The all-pairs density kernel on ``state``, the final state of
+    ``config``'s main path, where the fluid has fallen and pairs within h
+    are denser: held to its plain version, a second launch bit-equal, and
+    timed beside its bound on these inputs. Returns its ms."""
+    import torch
+    from sph_tpu_torch.app import configs
+    from sph_tpu_torch.app.microbench import time_ms
+    from sph_tpu_torch.physics import brute_kernels as BK
+
+    _, params, _ = configs.build(config, device=dev)
+    pv = BK.prepare(params, params.dt)
+    cf = state.contrib_mask(params.ghost_face_active).to(torch.float32)
+    pos, n = state.pos, state.n
+    want = BK.density_raw_plain(pos, cf, pv)
+    got = BK.density_raw(pos, cf, pv)
+    torch.cuda.synchronize()
+    err = check_close(f"{config} final brute_density rho_raw", got, want,
+                      RHO_RTOL, RHO_ATOL)
+    check_repeat(f"{config} final brute_density", (got,),
+                 lambda: (BK.density_raw(pos, cf, pv),))
+    tested, near, _, _ = brute_pairs(pos, pos, torch.ones_like(cf), cf, pv)
+    ms = time_ms(lambda: BK.density_raw(pos, cf, pv), 50)
+    b_ms, by = bound(20 * n, OPS_TEST_EXPANDED * tested
+                     + OPS_DENSITY_NEAR * near)
+    log(f"{config} final state brute_density: max|rho_raw err| {err!r}, a "
+        f"second launch bit-equal; {near} pairs within h (self included) of "
+        f"{tested} tested; kernel {ms!r} ms, bound {b_ms!r} ms by {by}, share "
+        f"of bound reached {b_ms / ms!r}")
+    return ms
 
 
 def phase_emit(dev, config):
@@ -1121,6 +1163,9 @@ def main() -> int:
                                       config)
         if configs.CONFIGS[config].viz_export:
             timed(f"export {config}", phase_export, dev, final, config)
+        if config == KERNELS["brute_density"][2]:
+            measured[config]["brute_density"]["final_ms"] = timed(
+                f"final {config}", phase_brute_final, dev, final, config)
         del final
     measured["micro"], counts["micro"] = timed("micro", phase_micro, dev)
 

@@ -9,22 +9,49 @@
 // is not carried over: the kernels read the port's [n][3] and [n] tensors.
 //
 // What bounds them on the card: the instruction rate.  Every pass tests all
-// n^2 pairs (about nine float32 operations each for the distance, 67.1M
-// pairs per pass at 8,192 rows), while the inputs are a few hundred
-// kilobytes that stay in L1/L2.  Only the few dozen pairs per row within h
-// do the full pair math.  The first force kernel put that pair math behind
-// a branch inside the pair loop: the compiler kept the branch (its SASS
-// has a BSSY/BRA/BSYNC region around every pair), so no two pairs'
-// shared-memory loads and arithmetic overlapped, and it took 2.2x per pass
-// what the density kernel takes for the same distance test.
+// n^2 pairs (67.1M pairs per pass at 8,192 rows), while the inputs are a
+// few hundred kilobytes that stay in L1/L2.  Only the few pairs per row
+// within h (0.07% of them at dam_break_8k) do the pair math.  So what
+// counts is the issue slots a tested pair costs, and how many of them the
+// card can fill.
 //
-// What the design does about it: the classic n-body shape, with the j
-// loop split across warps so that 8,192 rows still fill the card.
-// brute_density_kernel: a block holds 32 i rows (one per lane) and 8
-// warps; warp w walks the j tiles w, w + 8, ... of 32 rows each, staging
-// each tile in shared memory (one j row loaded per lane) and reading it
-// back as a broadcast; the 8 partial sums of a row are added in shared
-// memory, in a fixed order.
+// brute_density_kernel (redesigned; the first port took 0.0344 ms at
+// dam_break_8k on an H100 at 700 W, chip_smoke.py).  Its SASS showed the
+// pair math predicated, not branched, but 12.9 issue slots a pair: the
+// distance in 6, the test, (h^2 - r^2)^3 and the sum in 5 more, and a
+// broadcast 16-byte shared load for every pair of a lane, 32 rows to a
+// block.  The design:
+//   - The expanded test, |p_j|^2 - 2 p_i.p_j < limit_i, is 3 FFMA a pair on
+//     a source record (-2x, -2y, -2z, |p|^2); limit_i = h^2 - |p_i|^2 plus
+//     a slack that bounds the float32 rounding (kSlack), so every pair
+//     within h passes, and a sliver beyond.
+//   - The sign bit of (test - limit) is shifted into a per-row mask: one
+//     FADD and one SHF a pair, no branch.  The exact test and term,
+//     contrib_j (h^2 - r^2)^3 where r^2 < h^2 from the differences, as
+//     before, run over the set bits only, skipped by the whole warp when no
+//     lane has one.
+//   - Four rows a lane, so one broadcast load serves four tests: 5.3 issue
+//     slots a pair in the SASS (3 FFMA, FADD, SHF, a quarter of an LDS).
+//   - A cluster of two blocks holds 128 rows; each block of 32 warps takes
+//     half the j tiles, warp w the tiles 32 b + w, + 64, ...  So 8,192 rows
+//     fill 128 SMs, one block each; block 1 adds its totals into block 0's
+//     shared memory (after a cluster barrier, armed at entry, shows that
+//     block 0 has started), and block 0 adds them after its own.
+// It takes 0.0188 ms after one substep and 0.0194 on the main path's final
+// state (more pairs within h): 37% and 36% of its bound, which counts the 7
+// operations a tested pair that the test does (3 FFMA, the FADD).  At the
+// card's full issue rate (4 warp instructions a clock on 128 SMs at 1.98
+// GHz) its 5.3 slots a pair would take 11 us; the launch, the loads and the
+// sums around the loop and the loop's own stalls make up the rest.
+// Sources in lanes, the other shape measured (rows broadcast from shared
+// memory, one ballot a row; not kept), took 0.0304 and 0.0358 ms: its
+// broadcast load serves one test.  The sum of a row has a fixed order (its
+// tiles in order, its warps in order, then block 0 before block 1): two
+// launches are bit-equal.  A source weighs by contrib_j alone (a row with
+// rho = 0 is still a source, unlike the force kernel); contrib_j = 0 and
+// the padding get the far position; the self pair and a coincident twin
+// count; the test is strict.
+//
 // brute_force_kernel: a block holds 64 i rows (two per lane, so one
 // broadcast 16-byte load serves two tests) and 32 warps, one block to an
 // SM.  A warp stages a j tile as two 16-byte records a source, prepared
@@ -33,15 +60,16 @@
 // so the test is the distance alone.  The next tile's rows are loaded
 // into registers before the current tile is tested.  The 32 tests of a
 // tile are branch-free and only set bits of a per-row mask, so they
-// overlap; the row's own bit is cleared once, in the one tile that holds
-// it; the pair math then runs over the set bits only.  Both passes (force,
-// then XSPH) are in one launch and write to buffers separate from the
-// inputs, because XSPH reads the stale neighbor pos/vel against the fresh
-// self pos/vel; the partial sums of the 32 warps are added in a fixed
-// order by one thread per sum, and every warp reads the same totals, so
-// each holds the row's fresh pos/vel.  No atomics: two launches on the
-// same inputs are bit-equal.  No TMA and no wgmma: there is no matrix
-// product and the inputs stay in cache.
+// overlap (the first port had a branch around every pair's math, which the
+// compiler kept); the row's own bit is cleared once, in the one tile that
+// holds it; the pair math then runs over the set bits only.  Both passes
+// (force, then XSPH) are in one launch and write to buffers separate from
+// the inputs, because XSPH reads the stale neighbor pos/vel against the
+// fresh self pos/vel; the partial sums of the 32 warps are added in a
+// fixed order by one thread per sum, and every warp reads the same
+// totals, so each holds the row's fresh pos/vel.  No atomics: two launches
+// on the same inputs are bit-equal.  No TMA and no wgmma: there is no
+// matrix product and the inputs stay in cache.
 //
 // Semantics are those of brute_pallas.py: rows keep their order, so the
 // self pair is excluded by row index (j != i); density includes the self
@@ -51,16 +79,15 @@
 // 1e-24)) as in the TPU kernel, with gmag = 0 at r2 = 0; mu is folded in
 // per pair.  The constants and pair math follow sweeps.cu.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "brute.h"
 
 namespace {
 
-// brute_density_kernel's shape
-constexpr int kRows = 32;    // i rows per block, one per lane
-constexpr int kSlices = 8;   // warps per block, each over its own j tiles
-constexpr int kBlock = kRows * kSlices;
+namespace cg = cooperative_groups;
+
 constexpr float kXsphCoeff = 0.12f;        // SPHFluid.comp:179
 constexpr float kDamping = 0.995f;         // SPHFluid.comp:170
 constexpr float kCflFraction = 0.4f;       // SPHFluid3D.cpp:414-416
@@ -68,52 +95,172 @@ constexpr float kSurfaceThreshold = 1e-6f; // SPHFluid.comp:159
 // r2 prefilter of the r < h test: r2 * rsqrt(r2) < h implies r2 below
 // this (rsqrt is within a few ulp), so the exact test sees every pair.
 constexpr float kPrefilter = 1.0001f;
+constexpr int kTile = 32;         // j rows per tile, one per lane
+// A source that takes no part (a dead source of the force kernel, a source
+// with contrib 0 of the density kernel) and the padding past row n get
+// this coordinate, so that they fail every distance test without a flag:
+// (x_i - 1e18)^2 and 3e36 are finite and far above h^2.
+constexpr float kFar = 1e18f;
 
-__global__ void __launch_bounds__(kBlock)
+// ---------------------------------------------------------------------------
+// brute_density_kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kDensityRows = 4;     // i rows per lane
+constexpr int kDensityWarps = 32;   // warps per block
+constexpr int kDensityBlocks = 2;   // blocks per cluster, each half the j tiles
+constexpr int kDensityGroup = 32 * kDensityRows;   // i rows per cluster
+// Slack of the expanded test's limit, 64 ulp: for a pair within h its
+// rounding stays below 30 ulp of |p_i|^2 + h^2, and the limit adds
+// kSlack (2 |p_i|^2 + 3 h^2) >= 64 ulp ((|p_i| + h)^2 + h^2).
+constexpr float kSlack = 3.8e-6f;
+
+// The expanded test value of a pair, |p_j|^2 - 2 p_i.p_j, on the source's
+// test record (-2 x_j, -2 y_j, -2 z_j, |p_j|^2): 3 FFMA.
+__device__ __forceinline__ float expanded(float x, float y, float z,
+                                          float4 a) {
+  return fmaf(z, a.z, fmaf(y, a.y, fmaf(x, a.x, a.w)));
+}
+
+// Row i's limit: every pair within h has expanded(...) < limit.
+__device__ __forceinline__ float row_limit(float x, float y, float z,
+                                           const SphSweepParams& p) {
+  const float s = x * x + y * y + z * z;
+  return (p.h2 - s) + kSlack * (2.f * s + 3.f * p.h2);
+}
+
+__device__ __forceinline__ float4 test_record(float x, float y, float z,
+                                              bool live) {
+  if (!live) x = y = z = kFar;
+  return make_float4(-2.f * x, -2.f * y, -2.f * z, x * x + y * y + z * z);
+}
+
+// The exact pair term on the source's (x, y, z, contrib):
+// contrib_j (h^2 - r^2)^3 where r^2 < h^2, else 0.
+__device__ __forceinline__ float density_term(float x, float y, float z,
+                                              float4 b, float h2) {
+  const float dx = x - b.x;
+  const float dy = y - b.y;
+  const float dz = z - b.z;
+  const float r2 = dx * dx + dy * dy + dz * dz;
+  const float d = r2 < h2 ? h2 - r2 : 0.f;
+  return d * d * d * b.w;
+}
+
+__global__ void __cluster_dims__(kDensityBlocks, 1, 1)
+__launch_bounds__(32 * kDensityWarps)
 brute_density_kernel(const float* __restrict__ pos,
                      const float* __restrict__ contrib, int n,
                      SphSweepParams p, float* __restrict__ rho_raw) {
-  __shared__ float4 tile[kSlices][kRows];   // x, y, z, contrib
-  __shared__ float part[kSlices][kRows];
+  constexpr int kR = kDensityRows, kS = kDensityWarps, kC = kDensityBlocks;
+  constexpr int kRows = kDensityGroup;
+  constexpr int kStride = kC * kS;
+  __shared__ float4 stage[2][kS][kTile];   // test records, (x, y, z, contrib)
+  __shared__ float tot[kC][kRows];         // block c's totals, in block 0
+  float* part = reinterpret_cast<float*>(stage);   // [kS][kRows] at the end
+  static_assert(sizeof(float) * kS * kRows <= sizeof(stage), "part fits");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int block = static_cast<int>(cluster.block_rank());
+  const int group = blockIdx.x / kC;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int i = blockIdx.x * kRows + lane;
-  const bool row = i < n;
-  const float xi = row ? pos[3 * i] : 0.f;
-  const float yi = row ? pos[3 * i + 1] : 0.f;
-  const float zi = row ? pos[3 * i + 2] : 0.f;
+  // block 1 writes into block 0's shared memory at the end, which it may
+  // do only once every block of the cluster has started: arrive now, wait
+  // just before that write
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
 
-  float sum = 0.f;
-  const int tiles = (n + kRows - 1) / kRows;
-  for (int t = warp; t < tiles; t += kSlices) {
-    const int j = t * kRows + lane;
-    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (j < n) {
-      s = make_float4(__ldg(pos + 3 * j), __ldg(pos + 3 * j + 1),
-                      __ldg(pos + 3 * j + 2), __ldg(contrib + j));
-    }
-    tile[warp][lane] = s;
+  const int tiles = (n + kTile - 1) / kTile;
+  const int first = block * kS + warp;
+  float4 raw = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto load = [&](int t) {
+    const int j = t * kTile + lane;
+    raw = j < n ? make_float4(__ldg(pos + 3 * j), __ldg(pos + 3 * j + 1),
+                              __ldg(pos + 3 * j + 2), __ldg(contrib + j))
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  if (first < tiles) load(first);
+
+  // all rows' loads first; a lane past row n reads row n - 1 and takes
+  // the limit -inf, which no source passes
+  float xi[kR], yi[kR], zi[kR], lim[kR], sum[kR];
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    const int i = min(group * kRows + r * 32 + lane, n - 1);
+    xi[r] = pos[3 * i];
+    yi[r] = pos[3 * i + 1];
+    zi[r] = pos[3 * i + 2];
+  }
+#pragma unroll
+  for (int r = 0; r < kR; ++r) {
+    lim[r] = group * kRows + r * 32 + lane < n
+                 ? row_limit(xi[r], yi[r], zi[r], p)
+                 : -__int_as_float(0x7f800000);
+    sum[r] = 0.f;
+  }
+
+  for (int t = first; t < tiles; t += kStride) {
+    stage[0][warp][lane] = test_record(
+        raw.x, raw.y, raw.z, t * kTile + lane < n && raw.w != 0.f);
+    stage[1][warp][lane] = raw;
     __syncwarp();
-#pragma unroll 8
-    for (int k = 0; k < kRows; ++k) {
-      const float4 q = tile[warp][k];
-      const float dx = xi - q.x;
-      const float dy = yi - q.y;
-      const float dz = zi - q.z;
-      const float r2 = dx * dx + dy * dy + dz * dz;
-      if (r2 < p.h2) {
-        const float d = p.h2 - r2;
-        sum += d * d * d * q.w;
+    if (t + kStride < tiles) load(t + kStride);
+    // bit 31 - k of hits[r]: source k of the tile passed row r's test, the
+    // sign bit of (test - limit) shifted in, branch-free
+    unsigned hits[kR];
+#pragma unroll
+    for (int r = 0; r < kR; ++r) hits[r] = 0u;
+#pragma unroll
+    for (int k = 0; k < kTile; ++k) {
+      const float4 a = stage[0][warp][k];
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        const float v = expanded(xi[r], yi[r], zi[r], a) - lim[r];
+        hits[r] = (hits[r] << 1) + (__float_as_uint(v) >> 31);
+      }
+    }
+    unsigned any = 0u;
+#pragma unroll
+    for (int r = 0; r < kR; ++r) any |= hits[r];
+    if (__any_sync(0xffffffffu, any != 0u)) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        for (unsigned m = hits[r]; m != 0u;) {
+          const int k = __clz(m);
+          m ^= 0x80000000u >> k;
+          sum[r] += density_term(xi[r], yi[r], zi[r], stage[1][warp][k],
+                                 p.h2);
+        }
       }
     }
     __syncwarp();
   }
-  part[warp][lane] = sum;
   __syncthreads();
-  if (warp == 0 && row) {
+#pragma unroll
+  for (int r = 0; r < kR; ++r) part[warp * kRows + r * 32 + lane] = sum[r];
+  __syncthreads();
+  {
+    // kT consecutive threads a row: each adds kQ warps' partials in warp
+    // order, then a fixed shuffle tree adds theirs; the block's totals go
+    // to block 0's tot[block]
+    constexpr int kT = 32 * kS / kRows, kQ = kS / kT;
+    const int row = threadIdx.x / kT, q = threadIdx.x % kT;
     float total = 0.f;
-    for (int w = 0; w < kSlices; ++w) total += part[w][lane];
-    rho_raw[i] = p.mass * p.poly6 * total;
+#pragma unroll
+    for (int w = 0; w < kQ; ++w) total += part[(q * kQ + w) * kRows + row];
+#pragma unroll
+    for (int o = kT / 2; o > 0; o >>= 1) {
+      total += __shfl_xor_sync(0xffffffffu, total, o);
+    }
+    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+    if (q == 0) cluster.map_shared_rank(&tot[block][row], 0)[0] = total;
+  }
+  cluster.sync();   // the totals in block 0 are complete and visible
+  if (block == 0 && threadIdx.x < kRows) {
+    const int row = group * kRows + threadIdx.x;
+    float total = tot[0][threadIdx.x];
+#pragma unroll
+    for (int c = 1; c < kC; ++c) total += tot[c][threadIdx.x];
+    if (row < n) rho_raw[row] = p.mass * p.poly6 * total;
   }
 }
 
@@ -121,14 +268,8 @@ brute_density_kernel(const float* __restrict__ pos,
 // brute_force_kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 32;         // j rows per tile, one per lane
 constexpr int kForceRows = 2;     // i rows per lane
 constexpr int kForceSlices = 32;  // warps per block, each over its own j tiles
-// A dead source (rho_j <= 0 or contrib_j <= 0) and the padding past row n
-// get this coordinate, so that they fail every distance test without a
-// flag: (x_i - 1e18)^2 is finite and far above h^2.
-constexpr float kFar = 1e18f;
-
 // The raw inputs of one j row, loaded a tile ahead of their use.
 struct RawRow {
   float x, y, z, vx, vy, vz, rho, pres, contrib;
@@ -435,17 +576,16 @@ int launch_force(const float* pos, const float* vel, const float* rho,
   return static_cast<int>(cudaGetLastError());
 }
 
-int grid_for(int n) { return (n + kRows - 1) / kRows; }
-
 }  // namespace
 
 extern "C" int sph_brute_density(const float* pos, const float* contrib,
                                  int n, const SphSweepParams* params,
                                  float* rho_raw, void* stream) {
   if (n > 0) {
-    brute_density_kernel<<<grid_for(n), kBlock, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        pos, contrib, n, *params, rho_raw);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int groups = (n + kDensityGroup - 1) / kDensityGroup;
+    brute_density_kernel<<<kDensityBlocks * groups, 32 * kDensityWarps, 0,
+                           s>>>(pos, contrib, n, *params, rho_raw);
   }
   return static_cast<int>(cudaGetLastError());
 }

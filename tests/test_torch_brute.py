@@ -6,7 +6,9 @@ interpret mode as the JAX package runs them on the CPU (kernel #4
 through ``brute_pallas._calls``, kernel #5 through ``brute_pallas.substep``),
 and 3 ``"brute_kernel"`` substeps against 3 JAX ``"brute_pallas"``
 substeps, on a 512-row dam break and on a ghost shell with its top face
-off.  Rows are compared in place: neither engine sorts.
+off; kernel #4's plain version also against the oracle's
+``brute_force.density_pass`` on the tiling inputs.  Rows are compared in
+place: neither engine sorts.
 
 CUDA (marker ``cuda``, skipped without a card): each kernel against its
 plain version, and the engine on the card against the CPU.  JAX is
@@ -437,7 +439,83 @@ def tiling_inputs(n, device="cpu", seed=21):
                  for a in (pos, vel, rho, pres, contrib)) + (pv,)
 
 
-TILING_N = [1, 31, 65, 100, 777]     # 64 rows to a block, 32 to a tile
+# the force kernel takes 64 rows to a block, the density kernel 128 to a
+# cluster of two blocks; both 32 sources to a tile
+TILING_N = [1, 31, 65, 100, 777]
+
+
+def jax_density_raw(pos, contrib):
+    """``sph_tpu.physics.brute_force.density_pass`` (the JAX oracle's raw
+    density, self included) on the same numpy arrays, with the params that
+    ``tiling_inputs`` derives its sweep params from."""
+    import jax.numpy as jnp
+    from sph_tpu.core.params import FluidParams as JFP
+    from sph_tpu.physics import brute_force as JBF
+    from sph_tpu_torch.core.params import FluidParams
+    tp = FluidParams.default(device="cpu").derive_mass()
+    jp = JFP(**{f.name: jnp.asarray(np.asarray(getattr(tp, f.name)))
+                for f in dataclasses.fields(tp)})
+    p = jnp.asarray(pos.numpy())
+    return np.asarray(JBF.density_pass(p, p, jnp.asarray(contrib.numpy()), jp))
+
+
+@pytest.mark.parametrize("n", TILING_N)
+def test_density_plain_on_tiling_inputs(n):
+    """Kernel #4's plain version against the JAX oracle's density pass on
+    the inputs the CUDA cases use: a source with contrib 0, two rows with
+    rho = 0 (still sources here), a coincident pair, row counts that fill
+    no block or tile."""
+    pos, _, _, _, contrib, pv = tiling_inputs(n)
+    got = BK.density_raw_plain(pos, contrib, pv)
+    np.testing.assert_allclose(got.numpy(), jax_density_raw(pos, contrib),
+                               rtol=RHO_RTOL, atol=RHO_ATOL)
+    # every row is its own source at r = 0: mass * poly6 * h^6 at least
+    assert float(got.min()) >= 0.999 * pv.mass * pv.poly6 * pv.h2 ** 3
+
+
+def test_density_plain_weights_sources_by_contrib_alone():
+    """The density pass weights a source by contrib_j and reads no rho:
+    moving the contrib = 0 row changes no other row's raw density, bit for
+    bit, while moving a row with rho = 0 and contrib = 1 changes its
+    neighbors'.  A coincident twin counts as a source of its own."""
+    pos, _, rho, _, contrib, pv = tiling_inputs(100)
+    (dead,), live_rho0 = DEAD_CONTRIB, DEAD_RHO[0]
+    assert float(contrib[dead]) == 0.0 and float(rho[live_rho0]) == 0.0
+    assert float(contrib[live_rho0]) == 1.0
+    base = BK.density_raw_plain(pos, contrib, pv)
+    others = torch.arange(100) != dead
+    moved = pos.clone()
+    moved[dead] += 100.0
+    assert torch.equal(BK.density_raw_plain(moved, contrib, pv)[others],
+                       base[others])
+    moved = pos.clone()
+    moved[live_rho0] += 100.0
+    changed = BK.density_raw_plain(moved, contrib, pv) != base
+    changed[live_rho0] = False
+    assert bool(changed.any())
+    twin = contrib.clone()
+    twin[TWINS[1]] = 0.0
+    alone = BK.density_raw_plain(pos, twin, pv)
+    poly6_h6 = pv.mass * pv.poly6 * pv.h2 ** 3
+    torch.testing.assert_close(base[TWINS[0]] - alone[TWINS[0]],
+                               torch.tensor(poly6_h6), rtol=1e-4, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", TILING_N)
+def test_density_kernel_on_tiling_inputs_on_cuda(cuda, n):
+    """The density kernel against its plain version with a contrib = 0
+    source, rho = 0 sources, a coincident pair and row counts that fill no
+    block or tile; a second launch is bit-equal to the first."""
+    pos, _, _, _, contrib, pv = tiling_inputs(n, device=cuda)
+    want = BK.density_raw_plain(pos, contrib, pv)
+    BK.reset_launches()
+    got = BK.density_raw(pos, contrib, pv)
+    again = BK.density_raw(pos, contrib, pv)
+    torch.cuda.synchronize()
+    assert BK.LAUNCHES["brute_density"] == 2
+    torch.testing.assert_close(got, want, rtol=RHO_RTOL, atol=RHO_ATOL)
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("n", TILING_N)
