@@ -53,6 +53,9 @@ def smoke(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"{x.numel()} values overflow the kernel's int32 "
                          f"indexing")
     build.check_tensor("x", x, torch.float32, x.shape, x.device)
+    if x.data_ptr() % 16:
+        raise ValueError("x does not start on a 16-byte boundary: the "
+                         "kernel loads float4")
     out = torch.empty_like(x)
     err = build.library().sph_smoke(
         x.data_ptr(), out.data_ptr(), x.numel(),

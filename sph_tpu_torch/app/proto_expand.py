@@ -103,6 +103,14 @@ def expand(starts: torch.Tensor, rows: torch.Tensor,
     if rows.dim() != 2 or rows.shape[1] <= F:
         raise ValueError(f"rows has shape {tuple(rows.shape)}, expected "
                          f"[*, > {F}]")
+    # the kernel loads a payload as two float4: each row must start on 16
+    # bytes, so the width is refused, not loaded as scalars, where it is
+    # not a multiple of 4
+    if rows.shape[1] % 4:
+        raise ValueError(f"rows has width {rows.shape[1]}: the kernel takes "
+                         f"a multiple of 4")
+    if rows.data_ptr() % 16:
+        raise ValueError("rows does not start on a 16-byte boundary")
     if nrow * slots >= 2**31 // F:
         raise ValueError(f"{nrow} x {slots} slots overflow the kernel's "
                          f"int32 indexing")

@@ -18,7 +18,9 @@ int sph_smoke(const float* x, float* out, int n, void* stream);
 // float32, element j's payload in columns 0:fields and its target slot in
 // column `fields` (ascending and unique within each row, in [0, slots));
 // out [nrow][fields][slots] float32: out[y][c][target_j] = rows[j][c] for
-// the elements j of row y, -1 in every other slot.
+// the elements j of row y, -1 in every other slot.  fields must be 8, the
+// width a multiple of 4, and rows and out 16-byte aligned; otherwise
+// nothing is launched and cudaErrorInvalidValue is returned.
 int sph_expand(const int* starts, const float* rows, int nrow, int fields,
                int slots, int width, float* out, void* stream);
 

@@ -5,10 +5,16 @@ CPU: the plain versions against the JAX package's Pallas kernels run in
 interpret mode at small sizes: ``scripts/microbench.py``'s ``smoke`` (read
 from the script with ``ast``, so that the script's timings do not run) and
 ``scripts/proto_bfly_kernel.py``'s ``_kernel`` (imported with
-``PROTO_NROW``, ``PROTO_S`` and ``PROTO_MAXR`` set small), bit-equal.
+``PROTO_NROW``, ``PROTO_S`` and ``PROTO_MAXR`` set small), bit-equal, on
+the script's synthetic inputs and on hand-made ones (a row with no
+elements, a row whose targets end at slot S - 1); the plain expand
+against the script's numpy oracle on the edge cases below.
 
 CUDA (marker ``cuda``, skipped without a card): each kernel against its
-plain version at the scripts' default sizes, bit-equal:
+plain version, bit-equal, at the scripts' default sizes and at the edge
+cases of ``EDGES`` (S not a multiple of 4, S over several chunks, rows
+with no elements, a row that fills every slot, one row); the smoke kernel
+at [65,536, 512] and at odd element counts:
 
     python -m pytest tests/test_torch_micro.py -q -m cuda --noconftest
 """
@@ -79,6 +85,46 @@ def monkeypatch_module():
     mp.undo()
 
 
+def pack(targets, seed=0, pad=64):
+    """starts [len(targets) + 1] int32 and rows [n + pad, WIDTH] float32
+    for rows whose elements have the given ascending targets, as the
+    script lays them out; the payload is drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    counts = [len(t) for t in targets]
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    rows = np.zeros((int(starts[-1]) + pad, PE.WIDTH), np.float32)
+    for y, t in enumerate(targets):
+        sl = slice(starts[y], starts[y + 1])
+        rows[sl, :PE.F] = rng.standard_normal((len(t), PE.F))
+        rows[sl, PE.F] = t
+    return starts, rows
+
+
+def draw(s, count, seed):
+    """``count`` ascending unique targets in [0, s)."""
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.choice(s, count, replace=False))
+
+
+# name -> (each row's targets, S): the expand's edge cases
+EDGES = {
+    "s_not_multiple_of_4": (
+        [draw(4095, 700, 1), np.concatenate([draw(4000, 600, 2), [4094]]),
+         draw(4095, 1024, 3)], 4095),
+    "several_chunks": (
+        [draw(16384, 1024, 4), draw(16384, 3000, 5),
+         np.arange(16384 - 700, 16384)], 16384),
+    "rows_with_no_elements": (
+        [np.array([], np.int64), draw(4096, 900, 6),
+         np.array([], np.int64), draw(4096, 513, 7),
+         np.array([], np.int64)], 4096),
+    "rows_that_fill_slots": (
+        [np.arange(4096), np.arange(1024, 3072), np.array([0, 4095]),
+         draw(4096, 800, 8)], 4096),
+    "one_row": ([draw(4096, 1000, 9)], 4096),
+}
+
+
 def jax_expand(mod, starts, rows):
     """The script's ``pallas_call`` of ``_kernel`` (``:94-108``), in
     interpret mode."""
@@ -135,6 +181,34 @@ def test_expand_plain_matches_pallas_kernel(proto, seed):
     assert (got == -1.0).sum() > 0
 
 
+@pytest.mark.parametrize("case", ["empty_row", "ends_at_last_slot"])
+def test_expand_plain_matches_pallas_kernel_hand_made(proto, case):
+    """Rows the synthetic inputs never make: one with no elements, one
+    whose targets end at slot S - 1 (with one that starts at slot 0)."""
+    s, maxr = proto.S, proto.MAXR
+    if case == "empty_row":
+        targets = [draw(s, 40, 10), np.array([], np.int64),
+                   draw(s, maxr, 11), draw(s, 1, 12)]
+    else:
+        targets = [np.concatenate([draw(s - 1, 30, 13), [s - 1]]),
+                   np.arange(s - maxr, s), draw(s, 50, 14),
+                   np.concatenate([[0], draw(s - 1, 20, 15) + 1])]
+    starts, rows = pack(targets, seed=16, pad=maxr)
+    want = jax_expand(proto, starts, rows)
+    np.testing.assert_array_equal(want, PE.oracle(starts, rows, targets, s))
+    got = PE.expand(torch.as_tensor(starts), torch.as_tensor(rows), s)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", sorted(EDGES))
+def test_expand_plain_matches_oracle_at_edges(case):
+    targets, s = EDGES[case]
+    starts, rows = pack(targets, seed=17)
+    got = PE.expand(torch.as_tensor(starts), torch.as_tensor(rows), s)
+    np.testing.assert_array_equal(got.numpy(),
+                                  PE.oracle(starts, rows, targets, s))
+
+
 def test_synth_follows_the_script(proto):
     """The port's inputs and oracle are the script's at the same sizes:
     counts in [MAXR/2, MAXR), ascending unique targets, holes -1."""
@@ -184,7 +258,8 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(256, 512), (3, 7), (1000, 33)])
+@pytest.mark.parametrize("shape", [(256, 512), (65536, 512), (3, 7),
+                                   (1000, 33), (257, 3)])
 def test_smoke_kernel_matches_plain_on_cuda(cuda, shape):
     x = torch.as_tensor(np.random.default_rng(2).standard_normal(shape)
                         .astype(np.float32), device=cuda)
@@ -209,3 +284,39 @@ def test_expand_kernel_matches_plain_on_cuda(cuda, sizes):
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   PE.oracle(starts, rows, targets, s))
     assert PE.LAUNCHES == {"expand": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(EDGES))
+def test_expand_kernel_matches_plain_at_edges_on_cuda(cuda, case):
+    targets, s = EDGES[case]
+    starts, rows = pack(targets, seed=17)
+    st, rw = torch.as_tensor(starts, device=cuda), torch.as_tensor(
+        rows, device=cuda)
+    PE.reset_launches()
+    got = PE.expand(st, rw, s)
+    torch.cuda.synchronize()
+    assert torch.equal(got, PE.expand_plain(st, rw, s))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  PE.oracle(starts, rows, targets, s))
+    assert PE.LAUNCHES == {"expand": 1}
+
+
+@pytest.mark.cuda
+def test_expand_wrapper_refuses_rows_it_cannot_load_as_float4(cuda):
+    starts, rows = pack([draw(256, 10, 18)])
+    st = torch.as_tensor(starts, device=cuda)
+    wide = torch.zeros(rows.shape[0], PE.WIDTH + 2, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        PE.expand(st, wide, 256)
+    flat = torch.zeros(rows.size + 4, device=cuda)
+    shifted = flat[1:1 + rows.size].view(rows.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        PE.expand(st, shifted, 256)
+
+
+@pytest.mark.cuda
+def test_smoke_wrapper_refuses_x_off_16_bytes(cuda):
+    flat = torch.ones(4 * 128 + 4, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        MB.smoke(flat[1:1 + 4 * 128].view(4, 128))
