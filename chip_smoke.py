@@ -36,7 +36,9 @@ prints no result line):
              against the all-pairs oracle over 20 substeps of a 2k dam
              break and of a 512-particle box inside a ghost shell (the
              cell engine realigned by ``orig_id``, the all-pairs engine in
-             place);
+             place); then the cell engine against the oracle over 20
+             substeps of a 2k spawn in each of the ten container shapes,
+             after which no fluid row is outside its container;
 6. main    — ``configs.build`` with no device (the card is the default)
              then 4 frames of ``run_substeps(frame_prologue(state), ...,
              16)`` for ``default_131k``, ``ghost_1m``, ``dam_break_8k``,
@@ -54,6 +56,20 @@ prints no result line):
              colors on the card equal to the port's colors of the same
              state on the CPU, and the host rasterizer against its plain
              version on a subsample;
+6c. scene  — the scene's main paths (``app/scene_paths.py``: the river
+             at 65,536 asked rows, art preset 10's torus vortex and the
+             fountain at 50,000): the spawn and params of the JAX package's
+             Scene.respawn with no device argument, then 4 frames as its
+             Scene.update runs them (continuous wave, the audio reaction to
+             ``cmd_run --audio``'s bands, the jet speed, 16 substeps), with
+             the cell engine's launch counts, the invariants (the container
+             or, for the river, the box and the sink), the rows the
+             emitters respawned, the density against the JAX reference, the
+             peak device memory, and the stages after the solve run twice
+             under torch's synchronisation check (no device-to-host wait);
+6d. impulses — on the fountain's final state, the vortex, attractor, curl
+             flow and stencil impulses on the card against the CPU, each
+             timed;
 7. micro   — ``app.microbench.main`` and ``app.proto_expand.main`` (the
              entry points of the micro-kernels) with their launch counts,
              the launch floor (a one-element torch op timed likewise),
@@ -96,18 +112,45 @@ FRAME_SUBSTEPS = 16          # the reference's per-frame cap
 # wave and 16 substeps, printed by ``PYTHONPATH=. python
 # tests/test_torch_impulses.py rotated_512k 4 16 16``; its fullest cell
 # held 12 rows, so none overflowed (ROADMAP R9).
+# The scene paths (app/scene_paths.py): sph_tpu with the frames of its
+# Scene.update, printed by ``PYTHONPATH=. python tests/test_torch_modes.py
+# <path> 4 <capacity> [engine]`` (ROADMAP R12): torus_vortex_50k binned at
+# capacity 16 (fullest cell 8), fountain_50k binned at capacity 32 (fullest
+# cell 17), river_65k brute (its start piles up to 693 rows in a cell).  The
+# river's fluid density max after 64 substeps is set by rounding: the
+# terrain lifts the spawn's lower layers into one sheet, and three exact
+# engines on one card end 13,251 to 15,069 apart.  So its max is held after
+# the first frame (REF_RHO_FIRST_FRAME, where those engines agree to 0.02%
+# and JAX to 0.3%) and only its mean after 64 substeps (they agree to
+# 0.3%).
 REF_RHO = {
     "default_131k": (6426.8286, 1848.3309),
     "ghost_1m": (6451.4487, 1522.0352),
     "dam_break_8k": (4864.46240234375, 1669.9207237884402),
     "rotated_512k": (5185.92529296875, 1413.0148309509968),
+    "river_65k": (None, 3299.1475426587976),
+    "torus_vortex_50k": (2640.1220703125, 1427.916746054529),
+    "fountain_50k": (11545.8779296875, 2194.841480440674),
 }
-# the main paths, in the order they are driven; a JAX density reference at
-# export_4m is out of reach (ROADMAP R10), so it has no REF_RHO entry
-CONFIGS = (*REF_RHO, "export_4m")
+# (max, mean) after the first frame (16 substeps)
+REF_RHO_FIRST_FRAME = {"river_65k": (60291.6796875, 12595.702343231997)}
+# the bench configurations' main paths, in the order they are driven; a
+# JAX density reference at export_4m is out of reach (ROADMAP R10), so it
+# has no REF_RHO entry
+CONFIGS = ("default_131k", "ghost_1m", "dam_break_8k", "rotated_512k",
+           "export_4m")
 # main paths that take the emitted-row transport (SimConfig.emit_rows),
 # as ``SPH_EMIT_ROWS=1 python bench.py rotated_512k`` does in the JAX package
 EMIT_ROWS = ("rotated_512k",)
+
+# the ten container shapes of phase "shapes": each with the half extents
+# of its art preset, (7, 7, 7) for the shapes that no preset uses
+SHAPE_HALVES = {0: (7.0, 7.0, 7.0), 1: (7.0, 7.0, 7.0), 2: (6.0, 5.0, 6.0),
+                3: (7.0, 2.2, 0.0), 4: (4.0, 5.0, 0.0), 5: (6.0, 7.0, 1.4),
+                6: (5.5, 7.5, 0.0), 7: (7.0, 7.0, 7.0), 8: (7.0, 7.0, 7.0),
+                9: (7.0, 7.0, 7.0)}
+STENCIL_TARGETS = 4096       # Scene.STENCIL_CAPACITY
+IMPULSE_ATOL = 1e-5          # card against CPU, as the export's colors
 
 # kernel vs plain tolerances
 RHO_RTOL, RHO_ATOL = 1e-5, 1e-2     # tests/test_solver_equivalence.py:49
@@ -341,30 +384,19 @@ def check_cell_tables(config, state, params, cfg, ghosts):
     return fluid, carry, r
 
 
-def phase_kernels(dev, config, plain_reps=5):
-    """Each kernel against its plain version at full ``config``; the plain
-    sweeps (row chunks, seconds a run at 4M) timed over ``plain_reps``
-    runs."""
+def check_cell_kernels(config, state, params, cfg, pv, ghosts):
+    """The three cell kernels against their plain versions on ``state``,
+    as a substep with sweep params ``pv`` launches them: the cell table
+    bit-equal (``check_cell_tables``), the density within RHO_RTOL /
+    RHO_ATOL with its source records bit-equal to the plain packing, the
+    force sweep within POS_ATOL, VEL_ATOL and ACC_RTOL / ACC_ATOL and a
+    relaunch bit-equal.  Returns (fluid (skey, order), carried columns,
+    built rows, plain rho, plain source records, plain force outputs,
+    max abs errors by kernel)."""
     import torch
-    from sph_tpu_torch.app.microbench import time_ms
-    from sph_tpu_torch.app import configs
     from sph_tpu_torch.neighbors import cells, sweeps
-    from sph_tpu_torch.physics import constraints
 
-    state, params, cfg = configs.build(config, device=dev)
-    pv, ghosts = sweeps.prepare(state, params, params.dt, cfg)
-    dims, nc = cfg.grid_dims, cfg.num_cells
-
-    # one plain substep, so densities and velocities are non-trivial
-    r = cells.build(state, params, dims)
-    rho, pres = sweeps.density_plain(r.key, r.state.pos, r.cell_start,
-                                     r.cell_end, pv, ghosts)
-    out = sweeps.force_xsph_plain(r.key, r.state.pos, r.state.vel, rho,
-                                  r.cell_start, r.cell_end, pv, ghosts)
-    state = constraints.apply_container(
-        sweeps.reassemble(r.state, rho, pres, *out, params,
-                          ghosts=ghosts is not None), params)
-
+    nc = cfg.num_cells
     fluid, carry, r = check_cell_tables(config, state, params, cfg, ghosts)
 
     key, pos, vel, cs, ce = (r.key, r.state.pos, r.state.vel, r.cell_start,
@@ -409,7 +441,38 @@ def phase_kernels(dev, config, plain_reps=5):
     log(f"{config} force_xsph: max abs err pos {err_pos!r} vel {err_vel!r} "
         f"acc {err_acc!r}; a second launch is bit-equal; {far} of "
         f"{int(off.shape[0])} fluid rows beyond the queue's margin")
+    errs = {"cell_table": 0.0, "density": err_rho,
+            "force_xsph": max(err_pos, err_vel, err_acc)}
+    return fluid, carry, r, rho_p, src_p, fp, errs
 
+
+def phase_kernels(dev, config, plain_reps=5):
+    """Each kernel against its plain version at full ``config``; the plain
+    sweeps (row chunks, seconds a run at 4M) timed over ``plain_reps``
+    runs."""
+    from sph_tpu_torch.app.microbench import time_ms
+    from sph_tpu_torch.app import configs
+    from sph_tpu_torch.neighbors import cells, sweeps
+    from sph_tpu_torch.physics import constraints
+
+    state, params, cfg = configs.build(config, device=dev)
+    pv, ghosts = sweeps.prepare(state, params, params.dt, cfg)
+    dims, nc = cfg.grid_dims, cfg.num_cells
+
+    # one plain substep, so densities and velocities are non-trivial
+    r = cells.build(state, params, dims)
+    rho, pres = sweeps.density_plain(r.key, r.state.pos, r.cell_start,
+                                     r.cell_end, pv, ghosts)
+    out = sweeps.force_xsph_plain(r.key, r.state.pos, r.state.vel, rho,
+                                  r.cell_start, r.cell_end, pv, ghosts)
+    state = constraints.apply_container(
+        sweeps.reassemble(r.state, rho, pres, *out, params,
+                          ghosts=ghosts is not None), params)
+
+    fluid, carry, r, rho_p, src_p, fp, errs = check_cell_kernels(
+        config, state, params, cfg, pv, ghosts)
+    key, pos, vel, cs, ce = (r.key, r.state.pos, r.state.vel, r.cell_start,
+                             r.cell_end)
     skey, order = fluid
     n, nc8 = int(key.shape[0]), 8 * nc
     # the table writes its ranges once: cell_end[c] is cell_start[c + 1]
@@ -481,8 +544,6 @@ def phase_kernels(dev, config, plain_reps=5):
             gkey, gorder, state.pos, None, nc), 50)
         log(f"{config} cell_table of the {int(gkey.shape[0])} ghosts (pos "
             f"only): kernel {alone['ghost_table_ms']!r} ms")
-    errs = {"cell_table": 0.0, "density": err_rho,
-            "force_xsph": max(err_pos, err_vel, err_acc)}
     out = {name: {"max_abs_err": errs[name],
                   **report(config, name, *times[name], *work[name], n)}
            for name in times}
@@ -688,7 +749,7 @@ def phase_emit(dev, config):
     import torch
     from sph_tpu_torch.app.microbench import time_ms
     from sph_tpu_torch.app import configs
-    from sph_tpu_torch.engine.step import run_substeps
+    from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
     from sph_tpu_torch.neighbors import cells, sweeps
     from sph_tpu_torch.physics import constraints
 
@@ -758,8 +819,9 @@ def phase_emit(dev, config):
     runs = {}
     for emit in (True, False):
         reset_launches()
-        runs[emit] = run_substeps(state, params, params.dt, FRAME_SUBSTEPS,
-                                  dataclasses.replace(cfg, emit_rows=emit))
+        runs[emit], _ = run_substeps(
+            state, params, SceneBuffers.create(cfg), params.dt,
+            FRAME_SUBSTEPS, dataclasses.replace(cfg, emit_rows=emit))
         torch.cuda.synchronize()
         got_n = launches()
         want_n = {"force_xsph_emit": FRAME_SUBSTEPS if emit else 0,
@@ -923,7 +985,7 @@ def phase_small(dev):
     from sph_tpu_torch.core import state as S
     from sph_tpu_torch.core.params import (FluidParams, SimConfig,
                                            compute_grid_dims)
-    from sph_tpu_torch.engine.step import run_substeps
+    from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
 
     dam = (S.state_from_spawn(S.spawn_standard(2048, seed=7), device=dev),
            FluidParams.default(device=dev).derive_mass(),
@@ -931,10 +993,12 @@ def phase_small(dev):
     for name, (state, params, dims) in (("2k dam break", dam),
                                         ("ghost shell",
                                          ghost_shell_fixture(dev))):
-        outs = {impl: run_substeps(state, params, params.dt, 20,
-                                   SimConfig(n=state.n, grid_dims=dims,
-                                             neighbor_impl=impl))
-                for impl in ("brute", "cell", "brute_kernel")}
+        outs = {}
+        for impl in ("brute", "cell", "brute_kernel"):
+            cfg = SimConfig(n=state.n, grid_dims=dims, neighbor_impl=impl)
+            outs[impl], _ = run_substeps(state, params,
+                                         SceneBuffers.create(cfg), params.dt,
+                                         20, cfg)
         ref = outs["brute"]
         v = ref.fluid_mask()
         for impl in ("cell", "brute_kernel"):
@@ -950,26 +1014,23 @@ def phase_small(dev):
                                          f">= {lim}")
             check_ghosts(f"{name} {impl}", state, got,
                          float(params.rest_density))
+    phase_shapes(dev)
 
 
-def check_no_host_wait(state, params, dt, cfg) -> None:
-    """Substeps of the all-pairs engine with the per-run constants built
-    beforehand, as ``run_substeps`` runs them, under torch's synchronisation
-    check: any device-to-host wait inside a substep raises.  Called after the
-    main path's launch counts are read."""
+def check_no_host_wait(label, step, state, buffers) -> None:
+    """Two calls of ``step(state, buffers) -> (state, buffers)`` under
+    torch's synchronisation check: any device-to-host wait raises."""
     import torch
-    from sph_tpu_torch.engine.step import neighbor_aux, substep
 
-    aux = neighbor_aux(state, params, dt, cfg)
+    torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
         for _ in range(2):
-            state = substep(state, params, dt, cfg, aux=aux)
+            state, buffers = step(state, buffers)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    log(f"{cfg.neighbor_impl}: 2 substeps after neighbor_aux made no "
-        f"device-to-host wait")
+    log(f"{label}: 2 substeps made no device-to-host wait")
 
 
 def phase_main(dev, config):
@@ -982,7 +1043,8 @@ def phase_main(dev, config):
     from sph_tpu_torch.app import configs
     from sph_tpu_torch.core.device import card_line
     from sph_tpu_torch.core.params import rotation_matrix
-    from sph_tpu_torch.engine.step import run_substeps
+    from sph_tpu_torch.engine.step import (SceneBuffers, neighbor_aux,
+                                           run_substeps, substep)
 
     torch.cuda.reset_peak_memory_stats(dev)
     start, params, cfg = configs.build(config)
@@ -996,6 +1058,7 @@ def phase_main(dev, config):
     n_fluid = int(state.fluid_mask().sum())
     n_ghost = int((state.ghost > 0).sum())
     dt = params.dt
+    buffers = SceneBuffers.create(cfg)
     torch.cuda.synchronize()
 
     reset_launches()
@@ -1003,8 +1066,8 @@ def phase_main(dev, config):
         if frame == 1:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        state = run_substeps(prologue(state), params, dt, FRAME_SUBSTEPS,
-                             cfg)
+        state, buffers = run_substeps(prologue(state), params, buffers, dt,
+                                      FRAME_SUBSTEPS, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launches()
@@ -1062,7 +1125,13 @@ def phase_main(dev, config):
         check_ghosts(config, start, state, rho0)
 
     if cfg.neighbor_impl == "brute_kernel":
-        check_no_host_wait(state, params, dt, cfg)
+        # the substep with the per-run constants built beforehand, as
+        # run_substeps runs it
+        aux = neighbor_aux(state, params, dt, cfg)
+        check_no_host_wait(
+            f"{config}: {cfg.neighbor_impl} after neighbor_aux",
+            lambda st, b: substep(st, params, b, dt, cfg, aux=aux), state,
+            SceneBuffers.create(cfg))
 
     ms = wall / timed * 1e3
     rate = n_fluid * timed / wall
@@ -1160,6 +1229,272 @@ def phase_export(dev, state, config):
         f" drawn")
 
 
+def to_device(obj, dev):
+    """A copy of a dataclass of tensors (state, params, buffers) on
+    ``dev``; fields that are no tensors stay as they are."""
+    import dataclasses
+
+    import torch
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(dev)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
+def container_offset(state, params) -> float:
+    """The farthest that ``project_shape`` would move a fluid row that it
+    reports as a hit, in the container frame (0 when every row is
+    inside)."""
+    import torch
+    from sph_tpu_torch.core.params import rotation_matrix
+    from sph_tpu_torch.physics.constraints import project_shape
+
+    fl = state.fluid_mask()
+    local = ((state.pos[fl] - params.box_center)
+             @ rotation_matrix(params.box_euler_deg))
+    q, _, hit = project_shape(local, params.shape_type, params.box_half,
+                              params.shape_aux)
+    off = torch.linalg.vector_norm(q - local, dim=-1)
+    return float(torch.where(hit, off, 0.0).max()) if local.shape[0] else 0.0
+
+
+def phase_shapes(dev):
+    """The cell engine (kernels) against the all-pairs oracle over 20
+    substeps of a 2k spawn in each of the ten container shapes (at the
+    half extents of ``SHAPE_HALVES``), realigned by orig_id; then no fluid
+    row outside its container."""
+    import numpy as np
+    import torch
+    from sph_tpu_torch.core import state as S
+    from sph_tpu_torch.core.params import (SHAPE_NAMES, FluidParams,
+                                           SimConfig, compute_grid_dims)
+    from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
+
+    for shape, half in SHAPE_HALVES.items():
+        name = SHAPE_NAMES[shape]
+        spawn = S.spawn_standard(2048, box_half=half, shape_type=shape,
+                                 seed=7)
+        state = S.state_from_spawn(spawn, device=dev)
+        params = FluidParams.default(
+            device=dev, shape_type=shape,
+            box_half=np.asarray(half, np.float32)).derive_mass()
+        dims = compute_grid_dims(shape, half, (0.0, 0.0, 0.0), 0.28)
+        outs = {}
+        for impl in ("brute", "cell"):
+            cfg = SimConfig(n=state.n, grid_dims=dims, neighbor_impl=impl)
+            outs[impl], _ = run_substeps(state, params,
+                                         SceneBuffers.create(cfg), params.dt,
+                                         20, cfg)
+        ref, got = outs["brute"], outs["cell"]
+        v = ref.fluid_mask()
+        order = torch.argsort(got.orig_id)
+        errs = {f: max_err(getattr(got, f)[order][v], getattr(ref, f)[v])
+                for f in ("pos", "vel", "density")}
+        off = container_offset(got, params)
+        log(f"shape {shape} ({name}, half {half}, grid {dims}): "
+            f"{spawn.count} rows, cell kernels vs oracle over 20 substeps: "
+            f"{errs}; farthest fluid row outside the container {off!r}")
+        for f, lim in (("pos", 1e-4), ("vel", 1e-3), ("density", 1.0)):
+            if not errs[f] < lim:
+                raise AssertionError(f"shape {name}: {f} err {errs[f]} >= "
+                                     f"{lim}")
+        if not off <= 1e-4:
+            raise AssertionError(f"shape {name}: a fluid row is {off} "
+                                 f"outside the container")
+
+
+def check_density(name, rho, ref) -> None:
+    """The fluid density's max and mean within 2% and 0.5% of the JAX
+    reference's ``ref`` = (max, mean); a max of None is not held."""
+    got = (float(rho.max()), float(rho.double().mean()))
+    log(f"{name}: fluid density max {got[0]!r}, mean {got[1]!r}; the JAX "
+        f"reference's {ref}")
+    for what, g, want, rtol in (("max", got[0], ref[0], 0.02),
+                                ("mean", got[1], ref[1], 0.005)):
+        if want is not None and not abs(g - want) <= rtol * want:
+            raise AssertionError(f"{name}: fluid density {what} {g} is not "
+                                 f"within {rtol} of the reference's {want}")
+
+
+def phase_scene(dev, name):
+    """A scene path of ``app/scene_paths.py``: ``build`` with no device
+    (the card is the default), then FRAMES frames of ``frame``,
+    with the cell engine's launches, the invariants, the rows the emitters
+    respawned and the density against the JAX reference; then the
+    stages' host-wait check; the cell kernels against their plain versions
+    on the path's rows after the first frame and at the end.  Returns
+    (launches, final state, params)."""
+    import torch
+    from sph_tpu_torch.app import scene_paths
+    from sph_tpu_torch.core.device import card_line
+    from sph_tpu_torch.core.params import rotation_matrix
+    from sph_tpu_torch.engine.step import scene_stages
+    from sph_tpu_torch.scene.reaction import ReactionPhases
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    s, state, params, cfg, buffers = scene_paths.build(name)
+    if state.pos.device != dev or buffers.terrain.device != dev:
+        raise AssertionError(f"{name}: built on {state.pos.device}, not on "
+                             f"{dev}")
+    n_fluid = int(state.fluid_mask().sum())
+    log(f"scene {name}: shape {params.shape_type}, half "
+        f"{list(s.box_half)}, {s.particle_count} asked, {n_fluid} spawned, "
+        f"grid {cfg.grid_dims}, river {cfg.river_mode}, fountain "
+        f"{cfg.fountain_mode}")
+    phases, acc = ReactionPhases(), 0.0
+    dt = torch.tensor(s.time_step, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+
+    reset_launches()
+    for frame in range(FRAMES):
+        if frame == 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, params, buffers, phases, acc, n_sub = scene_paths.frame(
+            frame, state, params, buffers, cfg, s, phases, acc)
+        if n_sub != FRAME_SUBSTEPS:
+            raise AssertionError(f"{name}: frame {frame} ran {n_sub} "
+                                 f"substeps, not {FRAME_SUBSTEPS}")
+        if frame == 0:
+            if name in REF_RHO_FIRST_FRAME:
+                check_density(f"{name} after the first frame",
+                              state.density[state.fluid_mask()],
+                              REF_RHO_FIRST_FRAME[name])
+            # the first frame's launches are the path's; those of the
+            # comparison that follows are not
+            first = launches()
+            check_scene_kernels(f"{name} after the first frame", state,
+                                params, cfg, dt)
+            reset_launches()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: first[k] + v for k, v in launches().items()}
+
+    total = FRAMES * FRAME_SUBSTEPS
+    expect = dict.fromkeys(counts, 0)
+    expect.update(cell_table=total, density=total, force_xsph=total)
+    if counts != expect:
+        raise AssertionError(f"{name}: launches {counts} in {total} "
+                             f"substeps, expected {expect}")
+    fl = state.fluid_mask()
+    pos, vel, rho = state.pos[fl], state.vel[fl], state.density[fl]
+    if pos.shape[0] != n_fluid:
+        raise AssertionError(f"{pos.shape[0]} fluid rows, expected {n_fluid}")
+    for f, t in (("pos", state.pos), ("vel", state.vel),
+                 ("density", state.density)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: non-finite {f}")
+    rho0 = float(params.rest_density)
+    rho_min, rho_max = float(rho.min()), float(rho.max())
+    rho_mean = float(rho.double().mean())
+    vmax = float(torch.linalg.vector_norm(vel, dim=-1).max())
+    recycled = int(buffers.recycled)
+    log(f"scene {name}: {FRAMES} frames of {FRAME_SUBSTEPS} substeps, "
+        f"launches {counts}; density range [{rho_min!r}, {rho_max!r}], mean "
+        f"{rho_mean!r}, max |v| {vmax!r}; {recycled} rows respawned by the "
+        f"emitters")
+    if not rho_min >= 0.5 * rho0 - 1e-3:
+        raise AssertionError(f"{name}: density {rho_min} below the floor")
+    # the solve caps the speed at 0.4 h / dt; in river mode the channel's
+    # flow gravity adds river_flow_gravity * dt after it
+    cap = 0.4 * float(params.h) / s.time_step * (1 + 1e-4)
+    if cfg.river_mode:
+        cap += float(params.river_flow_gravity) * s.time_step
+    if not vmax <= cap:
+        raise AssertionError(f"{name}: speed {vmax} above the CFL cap {cap}")
+    if cfg.river_mode or cfg.fountain_mode:
+        if not recycled > 0:
+            raise AssertionError(f"{name}: the emitters respawned no row")
+    elif recycled:
+        raise AssertionError(f"{name}: {recycled} rows respawned without "
+                             f"an emitter")
+    if cfg.river_mode:
+        # stream_emit is the last stage: the box, and no row left below
+        # the sink or past it
+        local = ((pos - params.box_center)
+                 @ rotation_matrix(params.box_euler_deg))
+        if not bool((local.abs() <= params.box_half + 1e-4).all()):
+            raise AssertionError(f"{name}: a fluid particle left the box")
+        if not (bool((pos[:, 1] >= params.river_sink_y).all())
+                and bool((pos[:, 2] <= params.river_sink_z_max).all())):
+            raise AssertionError(f"{name}: a fluid row below the sink or "
+                                 f"past it")
+    else:
+        off = container_offset(state, params)
+        if not off <= 1e-4:
+            raise AssertionError(f"{name}: a fluid row is {off} outside the "
+                                 f"container")
+    timed_sub = total - FRAME_SUBSTEPS
+    log(f"scene {name}: {wall / timed_sub * 1e3!r} ms/substep (host clock "
+        f"over {timed_sub} substeps and their frames' reactions, after a "
+        f"frame of warm-up); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev)} bytes (build and run) on "
+        f"{card_line()}")
+    if cfg.river_mode or cfg.fountain_mode:
+        # the stages after the solve, with the scene's buffers on the card
+        check_no_host_wait(
+            f"{name}: {'river' if cfg.river_mode else 'fountain'} stages",
+            lambda st, b: scene_stages(st, params, b, params.dt, cfg), state,
+            buffers)
+    check_density(name, rho, REF_RHO[name])
+    check_scene_kernels(f"{name} final", state, params, cfg, dt)
+    return counts, state, params
+
+
+def check_scene_kernels(label, state, params, cfg, dt) -> None:
+    """The three cell kernels against their plain versions on a scene
+    path's own rows (``check_cell_kernels``), with the sweep params that
+    the frame's ``run_substeps`` builds from ``params`` and ``dt``."""
+    from sph_tpu_torch.neighbors import cells, sweeps
+
+    skey, _ = cells.fluid_sort(state, params, cfg.grid_dims)
+    skey = skey[skey < cfg.num_cells]
+    log(f"{label}: {int(skey.shape[0])} fluid rows, the fullest cell holds "
+        f"{int(skey.bincount().max())} rows")
+    check_cell_kernels(label, state, params, cfg,
+                       *sweeps.prepare(state, params, dt, cfg))
+
+
+def phase_impulses(dev, state, params):
+    """The four impulses that no bench configuration drives, on ``state``
+    (a scene path's final state) on the card and on the CPU, within
+    IMPULSE_ATOL, each timed on the card."""
+    import numpy as np
+    import torch
+    from sph_tpu_torch.app.microbench import time_ms
+    from sph_tpu_torch.physics import impulses as I
+
+    host_state, host_params = to_device(state, "cpu"), to_device(params,
+                                                                   "cpu")
+    targets = np.random.default_rng(0).uniform(
+        -6.0, 6.0, (STENCIL_TARGETS, 3)).astype(np.float32)
+    point = params.box_center.cpu().numpy() + np.float32([0.0, 2.0, 0.0])
+    # the kicks of a frame, dt-premultiplied as drive_audio_reaction does
+    calls = {
+        "vortex": lambda st, p, t: I.vortex_impulse(st, p, 6.8 / 60,
+                                                    1.0 / 60),
+        "attractor": lambda st, p, t: I.attractor_impulse(st, point,
+                                                          8.0 / 60, 6.0),
+        "curl_flow": lambda st, p, t: I.curl_flow(st, 3.0 / 60, 0.15, 0.3),
+        "stencil": lambda st, p, t: I.stencil_attract(
+            st, t, STENCIL_TARGETS, 6.0 / 60, 2.0 / 60),
+    }
+    for name, fn in calls.items():
+        card_t = torch.as_tensor(targets, device=dev)
+        card = fn(state, params, card_t).vel
+        host = fn(host_state, host_params, torch.as_tensor(targets)).vel
+        if card.device != dev:
+            raise AssertionError(f"{name} ran on {card.device}")
+        err = max_err(card.cpu(), host)
+        moved = int((card != state.vel).any(-1).sum())
+        ms = time_ms(lambda: fn(state, params, card_t))
+        log(f"impulse {name}: card against CPU max abs err {err!r} on "
+            f"{state.n} rows ({moved} moved), {ms!r} ms on the card")
+        if not (err <= IMPULSE_ATOL and moved > 0):
+            raise AssertionError(f"impulse {name}: err {err}, {moved} rows "
+                                 f"moved")
+
+
 def timed(name, fn, *args, **kw):
     """``fn(*args, **kw)``, with its seconds logged."""
     t0 = time.perf_counter()
@@ -1174,7 +1509,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs a CUDA card", file=sys.stderr)
         return 1
-    from sph_tpu_torch.app import configs
+    from sph_tpu_torch.app import configs, scene_paths
     from sph_tpu_torch.core.device import card_line
     from sph_tpu_torch.native import build
 
@@ -1210,6 +1545,12 @@ def main() -> int:
         if config == KERNELS["brute_density"][2]:
             measured[config]["brute_density"]["final_ms"] = timed(
                 f"final {config}", phase_brute_final, dev, final, config)
+        del final
+    for name in scene_paths.PATHS:
+        counts[name], final, params = timed(f"scene {name}", phase_scene,
+                                            dev, name)
+        if name == "fountain_50k":
+            timed("impulses", phase_impulses, dev, final, params)
         del final
     measured["micro"], counts["micro"] = timed("micro", phase_micro, dev)
 

@@ -2,9 +2,11 @@
 (counterpart of ``bench.py`` at the repo root, which drives the JAX
 package).
 
-    python -m sph_tpu_torch.app.bench [config_name] [n_substeps]
+    python -m sph_tpu_torch.app.bench [config_name] [n_substeps] [engine]
 
-Defaults ``ghost_1m`` and 20, as ``bench.py:23-24``.  It builds the
+Defaults ``ghost_1m`` and 20, as ``bench.py:23-25``; ``engine`` overrides
+the configuration's neighbor engine (``brute`` benches the all-pairs
+oracle, by the JAX package's names, ``configs.build``).  It builds the
 configuration on the CUDA card (with no card it raises), runs one warm-up
 frame, the configuration's frame prologue and ``n_substeps`` substeps,
 then times ``FRAMES`` more such frames with the host clock around work
@@ -28,7 +30,7 @@ import os
 import statistics
 import sys
 import time
-from typing import List, Union
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -36,7 +38,7 @@ import torch
 from sph_tpu_torch.app import configs
 from sph_tpu_torch.core.device import card_line, resolve
 from sph_tpu_torch.core.state import ParticleState
-from sph_tpu_torch.engine.step import run_substeps
+from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
 from sph_tpu_torch.viz import palettes as PAL
 from sph_tpu_torch.viz.camera import fit_camera
 from sph_tpu_torch.viz.splat import render_frame, save_png
@@ -81,10 +83,13 @@ def export_frames(state: ParticleState, cfg: configs.BenchConfig,
 
 
 def run(cfg: Union[str, configs.BenchConfig], n_substeps: int = 20,
-        device=None, frames: int = FRAMES) -> dict:
+        device=None, frames: int = FRAMES,
+        neighbor_impl: Optional[str] = None) -> dict:
     """Time ``frames`` frames of ``cfg`` after one warm-up frame; returns
     the record that ``main`` prints.  ``device`` is the CUDA card unless
-    the caller names another (the tests pass ``"cpu"``)."""
+    the caller names another (the tests pass ``"cpu"``);
+    ``neighbor_impl`` overrides the configuration's engine, by the JAX
+    package's name or the port's (``configs.build``)."""
     if frames < 1:
         raise ValueError("the bench times at least one frame")
     dev = resolve(device)
@@ -92,8 +97,10 @@ def run(cfg: Union[str, configs.BenchConfig], n_substeps: int = 20,
     if isinstance(cfg, str):
         cfg = configs.CONFIGS[cfg]
     name = cfg.name
-    state, params, sim = configs.build(cfg, device=dev)
+    state, params, sim = configs.build(cfg, neighbor_impl=neighbor_impl,
+                                       device=dev)
     prologue = configs.frame_prologue(cfg, params, n_substeps)
+    buffers = SceneBuffers.create(sim, device=dev)
     n_fluid = int(state.fluid_mask().sum())
     _log(f"device: {card_line() if cuda else dev}")
     _log(f"config={name} fluid={n_fluid} padded={state.n} "
@@ -101,7 +108,8 @@ def run(cfg: Union[str, configs.BenchConfig], n_substeps: int = 20,
 
     def frame(st):
         t0 = time.perf_counter()
-        st = run_substeps(prologue(st), params, params.dt, n_substeps, sim)
+        st, _ = run_substeps(prologue(st), params, buffers, params.dt,
+                             n_substeps, sim)
         if cuda:
             torch.cuda.synchronize(dev)
         return st, time.perf_counter() - t0
@@ -140,10 +148,12 @@ def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else argv
     name = argv[0] if len(argv) > 0 else "ghost_1m"
     n_substeps = int(argv[1]) if len(argv) > 1 else 20
+    # bench.py's third argument: the engine, e.g. "brute" for the oracle
+    override = {"neighbor_impl": argv[2]} if len(argv) > 2 else {}
     if name not in configs.CONFIGS:
         sys.exit(f"unknown config '{name}'; "
                  f"available: {', '.join(sorted(configs.CONFIGS))}")
-    print(json.dumps(run(name, n_substeps)), flush=True)
+    print(json.dumps(run(name, n_substeps, **override)), flush=True)
 
 
 if __name__ == "__main__":

@@ -23,7 +23,7 @@ import json
 import torch
 
 from sph_tpu_torch.app import configs
-from sph_tpu_torch.engine.step import run_substeps
+from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
 from sph_tpu_torch.neighbors import cells, sweeps
 
 SUBSTEPS = 16
@@ -59,9 +59,10 @@ def count(name: str, frames: int = 5):
         raise RuntimeError("neighbor_counts needs a CUDA card")
     state, params, cfg = configs.build(name)
     prologue = configs.frame_prologue(name, params, SUBSTEPS)
+    buffers = SceneBuffers.create(cfg)
     for _ in range(frames):
-        state = run_substeps(prologue(state), params, params.dt, SUBSTEPS,
-                             cfg)
+        state, buffers = run_substeps(prologue(state), params, buffers,
+                                      params.dt, SUBSTEPS, cfg)
     pv, ghosts = sweeps.prepare(state, params, params.dt, cfg)
     r = cells.build(state, params, cfg.grid_dims)
     cand, near = reach_counts(r.key, r.state.pos, r.cell_start, r.cell_end,

@@ -1,11 +1,15 @@
-"""Where a substep's time goes on the card, for one bench configuration.
+"""Where a substep's time goes on the card, for one bench configuration
+or one scene path.
 
     python -m sph_tpu_torch.app.profile_substeps dam_break_8k
     python -m sph_tpu_torch.app.profile_substeps rotated_512k --emit-rows
+    python -m sph_tpu_torch.app.profile_substeps fountain_50k
 
-Each window is one frame: the configuration's frame prologue
+Each window is one frame: for a bench configuration its frame prologue
 (``configs.frame_prologue``: the wave at ``rotated_512k``, nothing
-elsewhere), then 16 substeps.  After 2 warm-up frames, times 3 windows
+elsewhere), then 16 substeps; for a scene path (``app/scene_paths.py``)
+the frame of ``scene_paths.frame``: the audio reaction, then its 16
+substeps.  After 2 warm-up frames, times 3 windows
 with the host clock around synchronised work (no profiler), then profiles
 one more window with ``torch.profiler`` (CPU and CUDA activity).
 ``--emit-rows`` runs the cell engine with ``SimConfig.emit_rows``.
@@ -27,8 +31,9 @@ from collections import defaultdict
 
 import torch
 
-from sph_tpu_torch.app import configs
-from sph_tpu_torch.engine.step import run_substeps
+from sph_tpu_torch.app import configs, scene_paths
+from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
+from sph_tpu_torch.scene.reaction import ReactionPhases
 
 WARMUP_FRAMES, SUBSTEPS, WINDOWS, TOP = 2, 16, 3, 12
 
@@ -48,18 +53,45 @@ def _busy_us(intervals) -> float:
     return total
 
 
+def _bench_frames(name: str, emit_rows: bool, substeps: int):
+    """(start state, frame: state -> state) of a bench configuration."""
+    state, params, cfg = configs.build(name)
+    cfg = dataclasses.replace(cfg, emit_rows=emit_rows)
+    prologue = configs.frame_prologue(name, params, substeps)
+    buffers = SceneBuffers.create(cfg)
+
+    def frame(st):
+        return run_substeps(prologue(st), params, buffers, params.dt,
+                            substeps, cfg)[0]
+    return state, frame
+
+
+def _scene_frames(name: str, emit_rows: bool, substeps: int):
+    """(start state, frame: state -> state) of a scene path; the frame
+    carries the params, buffers, phases and accumulator along."""
+    s, state, params, cfg, buffers = scene_paths.build(name)
+    cfg = dataclasses.replace(cfg, emit_rows=emit_rows)
+    carry = [params, buffers, ReactionPhases(), 0.0, 0]
+
+    def frame(st):
+        p, b, ph, acc, index = carry
+        st, p, b, ph, acc, n = scene_paths.frame(index, st, p, b, cfg, s, ph,
+                                                 acc)
+        if n != substeps:
+            raise RuntimeError(f"{name}: frame {index} ran {n} substeps, "
+                               f"not {substeps}")
+        carry[:] = [p, b, ph, acc, index + 1]
+        return st
+    return state, frame
+
+
 def profile(name: str, emit_rows: bool = False,
             warmup_frames: int = WARMUP_FRAMES, substeps: int = SUBSTEPS,
             windows: int = WINDOWS, top: int = TOP):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_substeps needs a CUDA card")
-    state, params, cfg = configs.build(name)
-    cfg = dataclasses.replace(cfg, emit_rows=emit_rows)
-    dt = params.dt
-    prologue = configs.frame_prologue(name, params, substeps)
-
-    def frame(st):
-        return run_substeps(prologue(st), params, dt, substeps, cfg)
+    frames = (_scene_frames if name in scene_paths.PATHS else _bench_frames)
+    state, frame = frames(name, emit_rows, substeps)
 
     for _ in range(warmup_frames):
         state = frame(state)
@@ -121,7 +153,8 @@ def profile(name: str, emit_rows: bool = False,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("config", choices=sorted(configs.CONFIGS))
+    ap.add_argument("config", choices=sorted(
+        (*configs.CONFIGS, *scene_paths.PATHS)))
     ap.add_argument("--emit-rows", action="store_true",
                     help="the cell engine's emitted-row transport")
     args = ap.parse_args(argv)

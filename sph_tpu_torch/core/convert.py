@@ -1,8 +1,9 @@
 """Carry a state or parameter set across from numpy.
 
 Each function takes a dict of numpy arrays, one per field of
-``FluidParams`` / ``ParticleState`` (the field names are those of the
-``sph_tpu`` structures), and returns the port's object on ``device``
+``FluidParams`` / ``ParticleState`` / ``SceneBuffers`` (the field names
+are those of the ``sph_tpu`` structures), and returns the port's object
+on ``device``
 (the CUDA card unless the caller names another, ``core.device.resolve``).
 The tests use them to feed the JAX package and the port the same inputs.
 """
@@ -17,6 +18,7 @@ import torch
 from sph_tpu_torch.core.device import resolve
 from sph_tpu_torch.core.params import FluidParams
 from sph_tpu_torch.core.state import ParticleState
+from sph_tpu_torch.engine.step import SceneBuffers
 
 
 def _fields(cls, d: Mapping[str, np.ndarray]):
@@ -41,6 +43,23 @@ def params_from_numpy(d: Mapping[str, np.ndarray], device=None) -> FluidParams:
     vals = {k: _tensor(d[k], device) for k in _fields(FluidParams, d)
             if k != "shape_type"}
     return FluidParams(shape_type=int(np.asarray(d["shape_type"])), **vals)
+
+
+def buffers_from_numpy(d: Mapping[str, np.ndarray],
+                       device=None) -> SceneBuffers:
+    """The JAX package's four scene buffers; the fountain's uint32 seed is
+    held in int64, and the port's count of respawned rows starts at 0
+    unless ``d`` has one."""
+    device = resolve(device)
+    return SceneBuffers(
+        terrain=_tensor(d["terrain"], device),
+        stencil_targets=_tensor(d["stencil_targets"], device),
+        stencil_count=_tensor(d["stencil_count"], device),
+        fountain_seed=torch.as_tensor(
+            np.asarray(d["fountain_seed"]).astype(np.int64), device=device),
+        recycled=torch.as_tensor(
+            np.asarray(d.get("recycled", 0)).astype(np.int64),
+            device=device))
 
 
 def state_from_numpy(d: Mapping[str, np.ndarray], device=None) -> ParticleState:

@@ -43,6 +43,24 @@ class ParticleState:
     def replace(self, **kw) -> "ParticleState":
         return dataclasses.replace(self, **kw)
 
+    @classmethod
+    def zeros(cls, n: int, device=None) -> "ParticleState":
+        """``n`` padding rows (``valid`` 0) on ``device``: the CUDA card
+        unless the caller names another (``core.device.resolve``).  Every
+        field is a tensor of its own (the JAX package may share one)."""
+        device = resolve(device)
+
+        def zeros(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        i32 = torch.int32
+        return cls(pos=zeros(n, 3), vel=zeros(n, 3), acc=zeros(n, 3),
+                   density=zeros(n), pressure=zeros(n), foam=zeros(n),
+                   ghost=zeros(n, dtype=i32), active=zeros(n, dtype=i32),
+                   face=zeros(n, dtype=i32) - 1,
+                   color_group=zeros(n, dtype=i32), valid=zeros(n, dtype=i32),
+                   orig_id=torch.arange(n, dtype=torch.int32, device=device))
+
     def contrib_mask(self, ghost_face_active: torch.Tensor) -> torch.Tensor:
         """[N] bool — whether each particle is a *neighbor source*.
 
@@ -271,6 +289,76 @@ def spawn_ghost_box_shell(*, h: float = 0.28, box_center=(0.0, 0.0, 0.0),
         pos=pos, vel=np.zeros((count, 3), np.float32),
         ghost=np.ones((count,), np.int32), face=face,
         color_group=np.zeros((count,), np.int32), count=count,
+    )
+
+
+def spawn_river(n_target: int, terrain: "np.ndarray", *, h: float = 0.28,
+                box_center=(0.0, 0.0, 0.0), box_half=(7.0, 7.0, 7.0),
+                terrain_min=(-7.0, -7.0), terrain_size=(14.0, 14.0),
+                river_amp: float = 2.0, river_freq: float = 0.25,
+                river_phase: float = 0.0, river_channel_width: float = 3.0,
+                river_emitter_pos=(0.0, 3.0, -9.0),
+                use_jitter: bool = True, jitter_amp: float = 0.20,
+                seed: int = 0) -> SpawnResult:
+    """Channel-following spawner for river mode (``SPHFluid3D.cpp:104-158``)."""
+    spacing = 0.85 * h
+    rng = np.random.default_rng(seed)
+    W, H = terrain.shape[1], terrain.shape[0]  # terrain[z, x]
+    x_min, z_min = terrain_min
+    x_size, z_size = terrain_size
+
+    def sample_h(wx, wz):
+        u = np.clip((wx - x_min) / x_size * (W - 1), 0.0, W - 2)
+        v = np.clip((wz - z_min) / z_size * (H - 1), 0.0, H - 2)
+        ix, iz = int(u), int(v)
+        fx, fz = u - ix, v - iz
+        h00 = terrain[iz, ix]
+        h10 = terrain[iz, ix + 1]
+        h01 = terrain[iz + 1, ix]
+        h11 = terrain[iz + 1, ix + 1]
+        return (h00 * (1 - fx) * (1 - fz) + h10 * fx * (1 - fz)
+                + h01 * (1 - fx) * fz + h11 * fx * fz)
+
+    def jit_():
+        if not use_jitter:
+            return 0.0
+        return float(rng.uniform(-spacing * jitter_amp, spacing * jitter_amp))
+
+    pos, vel, cg = [], [], []
+    count = 0
+    wz = z_min + spacing
+    while wz < z_min + z_size - spacing and count < n_target:
+        cx = box_center[0] + river_amp * np.sin(river_freq * wz + river_phase)
+        wx = cx - river_channel_width
+        while wx <= cx + river_channel_width and count < n_target:
+            ty = sample_h(wx, wz)
+            wy = ty + spacing
+            while wy <= ty + 2.5 and count < n_target:
+                pos.append([wx + jit_(), wy + jit_(), wz + jit_()])
+                vel.append([0.0, 0.0, 0.5])
+                cg.append(count & 1)
+                count += 1
+                wy += spacing
+            wx += spacing
+        wz += spacing
+    # Top-up at the emitter if the channel didn't hold enough
+    while count < n_target:
+        rx = rng.uniform(-river_channel_width * 0.5, river_channel_width * 0.5)
+        rz = rng.uniform(-river_channel_width * 0.5, river_channel_width * 0.5)
+        wx = river_emitter_pos[0] + rx
+        wz = river_emitter_pos[2] + rz
+        ty = sample_h(wx, wz)
+        pos.append([wx, ty + rng.uniform(0.0, 1.5), wz])
+        vel.append([0.0, 0.0, 2.0])
+        cg.append(count & 1)
+        count += 1
+    return SpawnResult(
+        pos=np.asarray(pos, np.float32).reshape(count, 3),
+        vel=np.asarray(vel, np.float32).reshape(count, 3),
+        ghost=np.zeros((count,), np.int32),
+        face=np.full((count,), -1, np.int32),
+        color_group=np.asarray(cg, np.int32),
+        count=count,
     )
 
 

@@ -1,57 +1,213 @@
-"""Container constraint (counterpart of ``sph_tpu/physics/constraints.py``,
-box only).
+"""Container, terrain and channel constraints
+(counterpart of ``sph_tpu/physics/constraints.py``).
 
-Ports the box case of ``shaders/OBBConstraints.comp``: a particle outside
-the box is projected onto it in container-local space, and its velocity
-reflects with restitution and friction.  The JAX package also keeps a
-component-wise "plane form" of the same math for its TPU table layout;
-one form is enough here.
+Ports the math of the reference constraint shaders:
+
+- ``shaders/OBBConstraints.comp`` — ten analytic container shapes; a
+  particle outside is projected onto the surface in container-local space
+  and its velocity reflects with restitution and friction.
+- ``shaders/TerrainConstraints.comp`` — heightfield collision with
+  bilinear sampling and finite-difference normals (river mode).
+- ``shaders/ChannelConstraint.comp`` — tangent-following flow gravity
+  along a sinusoidal channel, and its hard lateral walls (river mode).
+
+Each shape projector returns ``(q_local, n_local, hit)``.  ``shape_type``
+is a host int, so :func:`project_shape` picks one projector per call in
+Python where the JAX package switches on a traced id.  The JAX package
+also keeps a component-wise "plane form" of the box for its TPU table
+layout; one form is enough here.  Every function is out of place: it
+never writes into the tensors of the state it is given.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from sph_tpu_torch.core import params as P
 from sph_tpu_torch.core.params import FluidParams, rotation_matrix
 from sph_tpu_torch.core.state import ParticleState
 
+_EPS = 1e-6
+
+
+def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    return torch.sqrt(torch.sum(v * v, dim=-1, keepdim=keepdim))
+
 
 def _safe_unit(v: torch.Tensor) -> torch.Tensor:
-    n = torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True))
-    return v / torch.clamp_min(n, 1e-12)
+    return v / torch.clamp_min(_norm(v, keepdim=True), 1e-12)
 
 
-def _project_box(p: torch.Tensor, half: torch.Tensor):
-    """p [N,3] local coords -> (q [N,3], n [N,3], hit [N] bool)."""
-    q = torch.maximum(torch.minimum(p, half), -half)
+def _vec(values, like: torch.Tensor) -> torch.Tensor:
+    """A float32 constant on the device of ``like``."""
+    return torch.tensor(values, dtype=torch.float32, device=like.device)
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _xz_scale(p, y_c, r_max):
+    """Scale the xz radius down to ``r_max`` and clamp y to ``y_c``: the
+    shared tail of the cylinder-like projectors."""
+    lxz = _norm(p[:, ::2])
+    scale = torch.where(lxz > r_max, r_max / torch.clamp_min(lxz, _EPS), 1.0)
+    q = torch.stack([p[:, 0] * scale, y_c, p[:, 2] * scale], dim=-1)
+    delta = p - q
+    dl = _norm(delta)
+    return q, delta / torch.clamp_min(dl, 1e-12)[:, None], dl > _EPS
+
+
+# Every projector: p [N,3] local coords -> (q [N,3], n [N,3], hit [N] bool)
+
+def _project_box(p, half, aux):
+    q = _clip(p, -half, half)
     delta = p - q
     ad = torch.abs(delta)
     hit = torch.any(ad > 0.0, dim=-1)
     # Normal along the most violated axis (OBBConstraints.comp:207-212);
     # argmax returns the first maximum, as jnp.argmax does
     axis = torch.argmax(ad, dim=-1, keepdim=True)
-    n = torch.zeros_like(p).scatter_(
+    n = torch.zeros_like(p).scatter(
         -1, axis, torch.sign(torch.gather(delta, -1, axis)))
     return q, n, hit
 
 
+def _project_sphere(p, half, aux):
+    r = half[0]
+    d = _norm(p)
+    n = torch.where((d > _EPS)[:, None], p / torch.clamp_min(d, 1e-12)[:, None],
+                    _vec([0.0, 1.0, 0.0], p))
+    return n * r, n, d > r
+
+
+def _project_cylinder(p, half, aux):
+    r, hh = half[0], half[1]
+    y_c = _clip(p[:, 1], -hh, hh)
+    return _xz_scale(p, y_c, r)
+
+
+def _project_torus(p, half, aux):
+    R, r = half[0], half[1]
+    lxz = _norm(p[:, ::2])
+    ring_dir = torch.where((lxz > _EPS)[:, None],
+                           p[:, ::2] / torch.clamp_min(lxz, 1e-12)[:, None],
+                           _vec([1.0, 0.0], p))
+    ring = torch.stack([ring_dir[:, 0] * R, torch.zeros_like(lxz),
+                        ring_dir[:, 1] * R], dim=-1)
+    d = p - ring
+    dl = _norm(d)
+    n = d / torch.clamp_min(dl, _EPS)[:, None]
+    return ring + n * r, n, dl > r
+
+
+def _project_capsule(p, half, aux):
+    r, hh = half[0], half[1]
+    seg = torch.stack([torch.zeros_like(p[:, 0]),
+                       _clip(p[:, 1], -hh, hh),
+                       torch.zeros_like(p[:, 2])], dim=-1)
+    d = p - seg
+    dl = _norm(d)
+    n = d / torch.clamp_min(dl, _EPS)[:, None]
+    return seg + n * r, n, dl > r
+
+
+def _project_hourglass(p, half, aux):
+    base_r, hh = half[0], torch.clamp_min(half[1], 1e-6)
+    neck_r = torch.minimum(half[2], base_r)
+    y_c = _clip(p[:, 1], -hh, hh)
+    r_max = neck_r + (base_r - neck_r) * torch.abs(y_c) / hh
+    return _xz_scale(p, y_c, r_max)
+
+
+def _project_egg(p, half, aux):
+    a = torch.clamp_min(half[0], 1e-6)
+    b = torch.clamp_min(half[1], 1e-6)
+    e = torch.stack([a, b, a])
+    u = p / e[None, :]
+    d = _norm(u)
+    q = (u / torch.clamp_min(d, 1e-12)[:, None]) * e[None, :]
+    n = _safe_unit(q / (e * e)[None, :])
+    return q, n, d > 1.0
+
+
+def _project_star(p, half, aux):
+    R, hh = half[0], half[1]
+    pts = torch.clamp_min(aux[0], 3.0)
+    depth = torch.clamp(aux[1], 0.0, 0.9)
+    y_c = _clip(p[:, 1], -hh, hh)
+    ang = torch.atan2(p[:, 2], p[:, 0])
+    r_max = R * (1.0 - depth * (0.5 + 0.5 * torch.cos(pts * ang)))
+    return _xz_scale(p, y_c, r_max)
+
+
+def _project_superellipsoid(p, half, aux):
+    a = torch.clamp_min(half[0], 1e-6)
+    b = torch.clamp_min(half[1], 1e-6)
+    n_exp = torch.clamp(aux[2], 0.6, 8.0)
+    e = torch.stack([a, b, a])
+    u = torch.abs(p) / e[None, :]
+    F = torch.sum(torch.clamp_min(u, 1e-12) ** n_exp, dim=-1)
+    # Radial projection is exact: F(k p) = k^n F(p)
+    k = torch.clamp_min(F, 1e-12) ** (-1.0 / n_exp)
+    q = p * k[:, None]
+    g = (torch.sign(p)
+         * torch.clamp_min(torch.abs(q) / e[None, :], 1e-6) ** (n_exp - 1.0)
+         / e[None, :])
+    return q, _safe_unit(g), F > 1.0
+
+
+_TREFOIL_T = 2.0 * np.pi * np.arange(48, dtype=np.float32) / 48.0
+_TREFOIL_BASE = np.stack([
+    np.sin(_TREFOIL_T) + 2.0 * np.sin(2.0 * _TREFOIL_T),
+    0.35 * (-np.sin(3.0 * _TREFOIL_T)),
+    np.cos(_TREFOIL_T) - 2.0 * np.cos(2.0 * _TREFOIL_T),
+], axis=-1).astype(np.float32)  # [48,3] unit-scale knot samples
+
+
+def _project_trefoil(p, half, aux):
+    """Nearest of 48 knot samples, then the tube around it.  Builds a
+    [N, 48, 3] temporary: fine at scene sizes, not at millions of rows."""
+    S, r = half[0], half[1]
+    curve = S * torch.as_tensor(_TREFOIL_BASE, device=p.device)   # [48,3]
+    d2 = torch.sum((p[:, None, :] - curve[None, :, :]) ** 2, dim=-1)
+    best = curve[torch.argmin(d2, dim=-1)]          # first minimum [N,3]
+    d = p - best
+    dl = _norm(d)
+    n = d / torch.clamp_min(dl, _EPS)[:, None]
+    return best + n * r, n, dl > r
+
+
+_PROJECTORS = (
+    _project_box, _project_sphere, _project_cylinder, _project_torus,
+    _project_capsule, _project_hourglass, _project_egg, _project_star,
+    _project_superellipsoid, _project_trefoil,
+)
+
+
+def project_shape(p_local: torch.Tensor, shape_type: int,
+                  box_half: torch.Tensor, shape_aux: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The projector of ``shape_type`` (clamped to the ten shapes)."""
+    idx = min(max(int(shape_type), 0), P.NUM_SHAPES - 1)
+    return _PROJECTORS[idx](p_local, box_half, shape_aux)
+
+
 def apply_container(state: ParticleState, params: FluidParams) -> ParticleState:
-    """OBB containment with restitution + friction.
+    """Analytic-shape containment with restitution + friction.
 
     Mirrors ``OBBConstraints.comp:41-237``: world -> local via R^T (p - c),
     project, normal back to world, reflect ``vn' = -e vn``,
     ``vt' = (1 - mu) vt``. Ghost particles are skipped.
     """
-    if params.shape_type != P.SHAPE_BOX:
-        raise NotImplementedError(
-            f"shape_type {params.shape_type} "
-            f"({P.SHAPE_NAMES[params.shape_type]}): only the box container "
-            "is ported; see ROADMAP queue 1, 'The other 9 container "
-            "shapes'")
     rot = rotation_matrix(params.box_euler_deg)          # world_from_box
     rel = state.pos - params.box_center[None, :]
     p_local = rel @ rot                                  # R^T p per row
-    q_local, n_local, hit = _project_box(p_local, params.box_half)
+    q_local, n_local, hit = project_shape(
+        p_local, params.shape_type, params.box_half, params.shape_aux)
 
     n_world = _safe_unit(n_local @ rot.T)
     new_pos = params.box_center[None, :] + q_local @ rot.T
@@ -65,3 +221,94 @@ def apply_container(state: ParticleState, params: FluidParams) -> ParticleState:
         pos=torch.where(live, new_pos, state.pos),
         vel=torch.where(live, new_vel, state.vel),
     )
+
+
+# ---------------------------------------------------------------------------
+# Terrain heightfield (river mode)
+# ---------------------------------------------------------------------------
+
+def sample_terrain_height(terrain: torch.Tensor, wx: torch.Tensor,
+                          wz: torch.Tensor, tmin: torch.Tensor,
+                          tsize: torch.Tensor) -> torch.Tensor:
+    """Bilinear heightfield sample; terrain is [H, W] indexed [z, x]
+    (``TerrainConstraints.comp:20-33``)."""
+    H, W = terrain.shape
+    u = torch.clamp((wx - tmin[0]) / tsize[0] * (W - 1), 0.0, W - 2.0)
+    v = torch.clamp((wz - tmin[1]) / tsize[1] * (H - 1), 0.0, H - 2.0)
+    ix = u.to(torch.int32)               # truncation of a value >= 0
+    iz = v.to(torch.int32)
+    fx = u - ix
+    fz = v - iz
+    ix, iz = ix.long(), iz.long()
+    h00 = terrain[iz, ix]
+    h10 = terrain[iz, ix + 1]
+    h01 = terrain[iz + 1, ix]
+    h11 = terrain[iz + 1, ix + 1]
+    return ((h00 * (1 - fx) + h10 * fx) * (1 - fz)
+            + (h01 * (1 - fx) + h11 * fx) * fz)
+
+
+def terrain_normal(terrain: torch.Tensor, wx, wz, tmin, tsize) -> torch.Tensor:
+    """Finite-difference outward normal (``TerrainConstraints.comp:36-44``)."""
+    H, W = terrain.shape
+    dx = tsize[0] / (W - 1)
+    dz = tsize[1] / (H - 1)
+    hr = sample_terrain_height(terrain, wx + dx, wz, tmin, tsize)
+    hl = sample_terrain_height(terrain, wx - dx, wz, tmin, tsize)
+    hf = sample_terrain_height(terrain, wx, wz + dz, tmin, tsize)
+    hb = sample_terrain_height(terrain, wx, wz - dz, tmin, tsize)
+    n = torch.stack([hl - hr, (2.0 * dx).expand(wx.shape), hb - hf], -1)
+    return _safe_unit(n)
+
+
+def apply_terrain(state: ParticleState, terrain: torch.Tensor,
+                  params: FluidParams) -> ParticleState:
+    """Heightfield collision (``TerrainConstraints.comp:47-82``)."""
+    wx, wy, wz = state.pos[:, 0], state.pos[:, 1], state.pos[:, 2]
+    tmin, tsize = params.terrain_min, params.terrain_size
+    in_fp = ((wx >= tmin[0]) & (wx <= tmin[0] + tsize[0])
+             & (wz >= tmin[1]) & (wz <= tmin[1] + tsize[1]))
+    ty = sample_terrain_height(terrain, wx, wz, tmin, tsize)
+    below = wy < ty
+    live = in_fp & below & (state.ghost == 0) & (state.valid > 0)
+
+    n = terrain_normal(terrain, wx, wz, tmin, tsize)
+    new_pos = torch.stack([wx, torch.where(live, ty + 0.001, wy), wz], -1)
+    vn = torch.sum(state.vel * n, dim=-1)
+    into = vn < 0.0
+    v_n = vn[:, None] * n
+    v_t = state.vel - v_n
+    bounced = (-params.terrain_restitution * v_n
+               + (1.0 - params.terrain_friction) * v_t)
+    new_vel = torch.where((live & into)[:, None], bounced, state.vel)
+    return state.replace(pos=torch.where(live[:, None], new_pos, state.pos),
+                         vel=new_vel)
+
+
+def apply_channel(state: ParticleState, params: FluidParams,
+                  dt) -> ParticleState:
+    """Sinusoidal channel flow + lateral walls (``ChannelConstraint.comp``)."""
+    wz = state.pos[:, 2]
+    cx = (params.box_center[0]
+          + params.river_amp * torch.sin(params.river_freq * wz
+                                         + params.river_phase))
+    dx = state.pos[:, 0] - cx
+
+    # Tangent-following flow gravity
+    tdx = params.river_amp * params.river_freq * torch.cos(
+        params.river_freq * wz + params.river_phase)
+    tlen = torch.sqrt(tdx * tdx + 1.0)
+    live = (state.ghost == 0) & (state.valid > 0)
+    g = params.river_flow_gravity * dt
+    vx = state.vel[:, 0] + torch.where(live, tdx / tlen * g, 0.0)
+    vz = state.vel[:, 2] + torch.where(live, 1.0 / tlen * g, 0.0)
+
+    # Hard lateral wall at the channel half-width
+    outside = live & (torch.abs(dx) > params.river_channel_width)
+    wall_x = cx + torch.sign(dx) * params.river_channel_width
+    px = torch.where(outside, wall_x, state.pos[:, 0])
+    moving_out = dx * vx > 0.0
+    vx = torch.where(outside & moving_out, 0.0, vx)
+    return state.replace(
+        pos=torch.stack([px, state.pos[:, 1], state.pos[:, 2]], -1),
+        vel=torch.stack([vx, state.vel[:, 1], vz], -1))

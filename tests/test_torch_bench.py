@@ -58,6 +58,24 @@ def test_main_prints_one_json_line(fake_clock, capsys, monkeypatch):
     assert rec["value"] == round(2048 * N_SUB / 0.3, 1)
 
 
+@pytest.mark.parametrize("engine, impl", [("brute", "brute"),
+                                          ("pallas", "cell")])
+def test_main_passes_the_engine_to_the_build(engine, impl, fake_clock,
+                                             capsys, monkeypatch):
+    """bench.py's third argument (``bench.py:25``) overrides the engine,
+    by the JAX package's name: ``brute`` benches the all-pairs oracle."""
+    monkeypatch.setitem(bench.configs.CONFIGS, "tiny_2k", TINY)
+    real = bench.run
+    monkeypatch.setattr(bench, "run", lambda name, n, **kw: real(
+        name, n, device="cpu", **kw))
+    bench.main(["tiny_2k", str(N_SUB), engine])
+    out, err = capsys.readouterr()
+    assert f"impl={impl}" in err
+    assert json.loads(out)["value"] == round(2048 * N_SUB / 0.3, 1)
+    with pytest.raises(NotImplementedError, match="binned"):
+        real(TINY, 1, device="cpu", neighbor_impl="binned")
+
+
 def test_defaults_and_baseline_are_bench_pys(monkeypatch):
     assert bench.REFERENCE_BASELINE_PSTEPS == jax_bench.REFERENCE_BASELINE_PSTEPS
     seen = []

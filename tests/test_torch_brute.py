@@ -93,9 +93,10 @@ def case_numpy(case, warm=2):
         device="cpu", h=0.28, box_half=np.asarray(half, np.float32),
         ghost_face_active=active).derive_mass()
     dims = compute_grid_dims(0, half, (0, 0, 0), 0.28)
-    state = TSTEP.run_substeps(state, params, params.dt, warm,
-                               SimConfig(n=state.n, grid_dims=dims,
-                                         neighbor_impl="brute"))
+    cfg = SimConfig(n=state.n, grid_dims=dims, neighbor_impl="brute")
+    state, _ = TSTEP.run_substeps(
+        state, params, TSTEP.SceneBuffers.create(cfg, device="cpu"),
+        params.dt, warm, cfg)
 
     def arrays(obj):
         return {f.name: np.asarray(getattr(obj, f.name))
@@ -192,9 +193,10 @@ def test_engine_matches_pallas(pallas, case):
     ``"brute_pallas"``, over every row, in place."""
     r = pallas[case]
     ts, tp, _, _ = kernel_inputs(r["sd"], r["pd"])
-    got = TSTEP.run_substeps(ts, tp, tp.dt, N_SUB,
-                             SimConfig(n=ts.n, grid_dims=r["dims"],
-                                       neighbor_impl="brute_kernel"))
+    cfg = SimConfig(n=ts.n, grid_dims=r["dims"], neighbor_impl="brute_kernel")
+    got, _ = TSTEP.run_substeps(
+        ts, tp, TSTEP.SceneBuffers.create(cfg, device="cpu"), tp.dt, N_SUB,
+        cfg)
     want = r["three"]
     for f, tol in (("pos", POS_TOL), ("vel", VEL_TOL),
                    ("density", RHO_TOL)):
@@ -218,9 +220,10 @@ def test_engine_matches_the_ports_oracle():
     outs = {}
     for impl in ("brute", "brute_kernel"):
         ts, tp, _, _ = kernel_inputs(sd, pd)
-        outs[impl] = TSTEP.run_substeps(
-            ts, tp, tp.dt, 10, SimConfig(n=ts.n, grid_dims=dims,
-                                         neighbor_impl=impl))
+        cfg = SimConfig(n=ts.n, grid_dims=dims, neighbor_impl=impl)
+        outs[impl], _ = TSTEP.run_substeps(
+            ts, tp, TSTEP.SceneBuffers.create(cfg, device="cpu"), tp.dt, 10,
+            cfg)
     for f, tol in (("pos", POS_TOL), ("vel", VEL_TOL),
                    ("density", RHO_TOL)):
         err = float((getattr(outs["brute"], f)
@@ -294,8 +297,9 @@ def test_substep_feeds_the_kernels_what_they_take(monkeypatch):
         BK.force_plain, ("pos", "vel", "rho", "pres", "contrib")))
     sd, pd, dims = case_numpy("ghost_shell_open_top", warm=0)
     ts, tp, _, _ = kernel_inputs(sd, pd)
-    TSTEP.run_substeps(ts, tp, tp.dt, 2, SimConfig(
-        n=ts.n, grid_dims=dims, neighbor_impl="brute_kernel"))
+    cfg = SimConfig(n=ts.n, grid_dims=dims, neighbor_impl="brute_kernel")
+    TSTEP.run_substeps(ts, tp, TSTEP.SceneBuffers.create(cfg, device="cpu"),
+                       tp.dt, 2, cfg)
     assert seen == ["density_raw_plain", "force_plain"] * 2
 
 
@@ -317,7 +321,8 @@ def test_run_substeps_derives_the_sweep_params_once(monkeypatch, case):
     sd, pd, dims = case_numpy(case, warm=1)
     ts, tp, _, _ = kernel_inputs(sd, pd)
     cfg = SimConfig(n=ts.n, grid_dims=dims, neighbor_impl="brute_kernel")
-    got = TSTEP.run_substeps(ts, tp, tp.dt, 4, cfg)
+    got, _ = TSTEP.run_substeps(
+        ts, tp, TSTEP.SceneBuffers.create(cfg, device="cpu"), tp.dt, 4, cfg)
     assert calls == [(0, 0, 0)]
     del calls[:]
     want = ts
@@ -397,8 +402,10 @@ def test_engine_on_cuda_matches_cpu(cuda, case):
     for dev in ("cpu", cuda):
         ts, tp, _, _ = kernel_inputs(sd, pd, device=dev)
         BK.reset_launches()
-        st = TSTEP.run_substeps(ts, tp, tp.dt, 20, SimConfig(
-            n=ts.n, grid_dims=dims, neighbor_impl="brute_kernel"))
+        cfg = SimConfig(n=ts.n, grid_dims=dims, neighbor_impl="brute_kernel")
+        st, _ = TSTEP.run_substeps(
+            ts, tp, TSTEP.SceneBuffers.create(cfg, device=dev), tp.dt, 20,
+            cfg)
         outs[str(dev)] = {f: getattr(st, f).cpu()
                           for f in ("pos", "vel", "density")}
     assert BK.LAUNCHES == {"brute_density": 20, "brute_force": 20}

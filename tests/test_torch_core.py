@@ -182,12 +182,6 @@ def test_grid_cell_coords_and_keys_match_planes():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-def test_effective_half_raises_for_other_shapes():
-    tp = TP.FluidParams.default(device="cpu", shape_type=TP.SHAPE_SPHERE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TP.grid_min(tp)
-
-
 def test_sort_and_cell_ranges():
     js, jp, dims = _dam_break()
     ts = state_from_numpy(to_numpy(js), device="cpu")

@@ -1,7 +1,9 @@
-"""The wave impulse and the per-frame prologue (sph_tpu_torch.physics.impulses,
-sph_tpu_torch.app.configs.frame_prologue) against ``sph_tpu``, and the
-``rotated_512k`` path at a small size: a rotated box, the wave before every
-frame and the emitted-row transport, against the JAX all-pairs oracle.
+"""The five impulses and the per-frame prologue
+(sph_tpu_torch.physics.impulses, sph_tpu_torch.app.configs.frame_prologue)
+against ``sph_tpu`` (the curl noise bit for bit against the JAX functions
+run op by op), and the ``rotated_512k`` path at a small size: a rotated
+box, the wave before every frame and the emitted-row transport, against
+the JAX all-pairs oracle.
 
 The JAX reference density of a wave configuration at full size (the
 constants in ``chip_smoke.REF_RHO``) is printed by
@@ -17,6 +19,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 # tests/test_brute_pallas.py:40-42
 POS_TOL, VEL_TOL, RHO_TOL = 1e-4, 1e-3, 1.0
@@ -150,6 +153,7 @@ def rotated_runs():
         st, amplitude=60.0 * float(jp.dt) * 8, wavelength=4.0, phase=0.7,
         direction=jnp.asarray([1.0, 0.0, 0.3])))
     prologue = TCFG.frame_prologue(tcfg_b, tp, 8)
+    tbuf = TSTEP.SceneBuffers.create(tcfg, device="cpu")
     calls = {"force_xsph": 0, "force_xsph_emit": 0}
 
     def counted(name):
@@ -165,7 +169,8 @@ def rotated_runs():
             mp.setattr(sweeps, name, counted(name))
         for _ in range(2):
             js, buf = JSTEP.run_substeps(kick(js), jp, buf, jp.dt, 8, jcfg)
-            ts = TSTEP.run_substeps(prologue(ts), tp, tp.dt, 8, tcfg)
+            ts, tbuf = TSTEP.run_substeps(prologue(ts), tp, tbuf, tp.dt, 8,
+                                          tcfg)
     return start, to_numpy(js), {f.name: getattr(ts, f.name).numpy()
                                  for f in dataclasses.fields(ts)}, tp, calls
 
@@ -201,6 +206,127 @@ def test_rotated_wave_path_runs_emitted_rows_and_stays_in_the_box(
     assert got["density"][v].min() >= 500.0 - 1e-3
     # the waves moved the fluid: it is not at rest after 16 substeps
     assert np.abs(got["vel"][v]).max() > 0.1
+
+
+# ---------------------------------------------------------------------------
+# vortex, attractor, curl flow and stencil
+# ---------------------------------------------------------------------------
+
+# vortex: (shape_type, box_half, box_euler_deg, tangent kick, inward kick)
+VORTICES = {
+    "box": (0, (3.0, 3.0, 3.0), (0.0, 0.0, 0.0), 0.07, 0.02),
+    "torus_tilted": (3, (7.0, 2.2, 0.0), (15.0, 0.0, -30.0), 0.0667, 0.0167),
+    "sphere_inward_only": (1, (7.0, 7.0, 7.0), (0.0, 40.0, 0.0), 0.0, 0.5),
+}
+# attractor: (point, pull kick, radius)
+ATTRACTORS = {
+    "orb": ((10.0, 2.0, -10.0), 0.133, 6.0),
+    "small_radius": ((7.7, -1.7, -10.0), 1.5, 0.8),
+    "repel": ((12.0, -1.0, -8.0), -0.4, 20.0),
+}
+# curl flow: (kick, scale, time)
+CURLS = {"silk": (0.05, 0.15, 0.3), "fine": (0.2, 1.7, -4.25),
+         "min_scale": (0.1, 0.0, 12.0)}
+
+
+def port_shell(d, params):
+    from sph_tpu_torch.core.convert import params_from_numpy, state_from_numpy
+    return (state_from_numpy(d, device="cpu"),
+            params_from_numpy(to_numpy(params), device="cpu"))
+
+
+def assert_impulse(got, d, want, still):
+    """``got`` (the port's velocities) within WAVE_ATOL of ``want``;
+    the ``still`` rows keep their velocity exactly."""
+    got = got.numpy()
+    np.testing.assert_allclose(got, np.asarray(want), rtol=0, atol=WAVE_ATOL)
+    np.testing.assert_array_equal(got[still], d["vel"][still])
+    assert int((got != d["vel"]).any(axis=1).sum()) > 50
+
+
+@pytest.mark.parametrize("case", list(VORTICES))
+def test_vortex_impulse_matches_jax(case):
+    from sph_tpu.physics.impulses import vortex_impulse as jax_vortex
+    from sph_tpu_torch.physics.impulses import vortex_impulse
+    shape, half, euler, tangent, inward = VORTICES[case]
+    d, params = shell_state_numpy()
+    d["pos"] = d["pos"] - np.float32(10.0) * np.asarray([1.0, 0.0, -1.0],
+                                                        np.float32)
+    params = params.replace(shape_type=shape,
+                            box_half=np.asarray(half, np.float32),
+                            box_euler_deg=np.asarray(euler, np.float32))
+    want = jax_vortex(jax_state(d), params, tangent, inward).vel
+    ts, tp = port_shell(d, params)
+    got = vortex_impulse(ts, tp, tangent, inward).vel
+    assert_impulse(got, d, want, (d["ghost"] > 0) | (d["valid"] == 0))
+
+
+@pytest.mark.parametrize("case", list(ATTRACTORS))
+def test_attractor_impulse_matches_jax(case):
+    from sph_tpu.physics.impulses import attractor_impulse as jax_attractor
+    from sph_tpu_torch.physics.impulses import attractor_impulse
+    point, pull, radius = ATTRACTORS[case]
+    d, params = shell_state_numpy()
+    want = jax_attractor(jax_state(d), np.asarray(point, np.float32), pull,
+                         radius).vel
+    ts, _ = port_shell(d, params)
+    got = attractor_impulse(ts, point, pull, radius).vel
+    assert_impulse(got, d, want, (d["ghost"] > 0) | (d["valid"] == 0))
+
+
+def test_noise_is_the_jax_functions_op_by_op():
+    """``_hash13``, ``_vnoise`` and ``curl_noise`` bit for bit against the
+    JAX package's functions run op by op (``jax.disable_jit``): the jitted
+    JAX hash differs from its own op-by-op one (tests/test_torch_viz.py)."""
+    import jax
+    import jax.numpy as jnp
+    from sph_tpu.physics import impulses as JI
+    from sph_tpu_torch.physics import impulses as TI
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(-20, 20, (2048, 3)).astype(np.float32)
+    tp = torch.as_tensor(pts)
+    with jax.disable_jit():
+        for name in ("_hash13", "_vnoise", "curl_noise"):
+            want = np.asarray(getattr(JI, name)(jnp.asarray(pts)))
+            np.testing.assert_array_equal(getattr(TI, name)(tp).numpy(),
+                                          want, err_msg=name)
+
+
+@pytest.mark.parametrize("case", list(CURLS))
+def test_curl_flow_matches_jax(case):
+    import jax
+    from sph_tpu.physics.impulses import curl_flow as jax_curl
+    from sph_tpu_torch.physics.impulses import curl_flow
+    kick, scale, time = CURLS[case]
+    d, params = shell_state_numpy()
+    with jax.disable_jit():
+        want = jax_curl(jax_state(d), kick, scale, time).vel
+    ts, _ = port_shell(d, params)
+    got = curl_flow(ts, kick, scale, time).vel
+    assert_impulse(got, d, want, (d["ghost"] > 0) | (d["valid"] == 0))
+
+
+@pytest.mark.parametrize("num", [37, 4096, 0])
+def test_stencil_attract_matches_jax(num):
+    """Each row springs toward targets[orig_id % num] (rows shuffled, so
+    orig_id is not the row index); with no targets nothing moves."""
+    import jax.numpy as jnp
+    from sph_tpu.physics.impulses import stencil_attract as jax_stencil
+    from sph_tpu_torch.physics.impulses import stencil_attract
+    d, params = shell_state_numpy()
+    perm = np.random.default_rng(2).permutation(len(d["pos"]))
+    d = {k: v[perm] for k, v in d.items()}
+    targets = np.random.default_rng(3).uniform(
+        -3, 3, (4096, 3)).astype(np.float32)
+    want = jax_stencil(jax_state(d), jnp.asarray(targets), num, 0.1,
+                       0.033).vel
+    ts, _ = port_shell(d, params)
+    got = stencil_attract(ts, torch.as_tensor(targets), num, 0.1, 0.033).vel
+    still = (d["ghost"] > 0) | (d["valid"] == 0)
+    if num == 0:
+        np.testing.assert_array_equal(got.numpy(), d["vel"])
+    else:
+        assert_impulse(got, d, want, still)
 
 
 # ---------------------------------------------------------------------------

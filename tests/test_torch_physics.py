@@ -246,10 +246,3 @@ def test_apply_container_box(rng, euler):
     local = (got.pos - torch.tensor([0.5, -0.25, 0.0])) @ rot
     live = torch.as_tensor(np.asarray(js.valid) > 0) & (got.ghost == 0)
     assert bool((local[live].abs() <= torch.as_tensor(half) + 1e-4).all())
-
-
-def test_apply_container_other_shapes_raise(tparams):
-    ts = state_from_numpy(to_numpy(
-        JS.state_from_spawn(JS.spawn_standard(100, seed=0))), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TCON.apply_container(ts, tparams.replace(shape_type=TP.SHAPE_TORUS))

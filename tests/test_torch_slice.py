@@ -41,8 +41,10 @@ def port_run(state, params, dims, n_sub):
     """The port's cell engine on the same numpy inputs as ``jax_run``."""
     ts = state_from_numpy(to_numpy(state), device="cpu")
     tp = params_from_numpy(to_numpy(params), device="cpu")
-    out = TSTEP.run_substeps(ts, tp, tp.dt, n_sub,
-                             SimConfig(n=ts.n, grid_dims=dims))
+    cfg = SimConfig(n=ts.n, grid_dims=dims)
+    out, _ = TSTEP.run_substeps(
+        ts, tp, TSTEP.SceneBuffers.create(cfg, device="cpu"), tp.dt, n_sub,
+        cfg)
     return {f.name: getattr(out, f.name).numpy()
             for f in dataclasses.fields(out)}
 
@@ -255,8 +257,9 @@ def test_padding_rows_follow_the_jax_counterpart(impl, jax_impl, want):
     state, params, dims = padded_state()
     ts = state_from_numpy(to_numpy(state), device="cpu")
     tp = params_from_numpy(to_numpy(params), device="cpu")
-    out = TSTEP.run_substeps(ts, tp, tp.dt, 1, SimConfig(
-        n=ts.n, grid_dims=dims, neighbor_impl=impl))
+    cfg = SimConfig(n=ts.n, grid_dims=dims, neighbor_impl=impl)
+    out, _ = TSTEP.run_substeps(
+        ts, tp, TSTEP.SceneBuffers.create(cfg, device="cpu"), tp.dt, 1, cfg)
     got = {f: getattr(out, f).numpy() for f in ("density", "pressure",
                                                 "valid", "orig_id")}
     pad = got["valid"] == 0
@@ -359,12 +362,19 @@ def test_configs_kept_as_data_and_unported_parts_raise():
 def test_engine_dispatch_and_frame_accumulator():
     ts, tp, cfg = TCFG.build(TCFG.BenchConfig(
         name="tiny", n_target=300, box_half=(2.0, 2.0, 2.0)), device="cpu")
+    buffers = TSTEP.SceneBuffers.create(cfg, device="cpu")
     with pytest.raises(ValueError, match="neighbor_impl"):
-        TSTEP.run_substeps(ts, tp, tp.dt, 1,
+        TSTEP.run_substeps(ts, tp, buffers, tp.dt, 1,
                            dataclasses.replace(cfg, neighbor_impl="pallas"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TSTEP.substep(ts, tp, tp.dt,
-                      dataclasses.replace(cfg, river_mode=True))
+    # river mode runs: the zero heightfield, whose footprint covers the box,
+    # lifts the fluid of the box's lower half to y = 0.001, and no row is
+    # below the sink or past it
+    river = dataclasses.replace(cfg, river_mode=True)
+    out, buf = TSTEP.substep(ts, tp, buffers, tp.dt, river)
+    y = out.pos[out.fluid_mask()][:, 1]
+    assert bool((ts.pos[ts.fluid_mask()][:, 1] < 0).any())
+    assert bool((y >= 0).all()) and bool((y == 0.001).any())
+    assert int(buf.recycled) == 0 and int(buf.fountain_seed) == 0
     for args in ((1 / 60, 1e-3, 16, 0.0), (1 / 30, 4e-3, 16, 0.002),
                  (0.0, 1e-3, 16, 0.0025)):
         assert (TSTEP.substeps_for_frame(*args)
@@ -374,7 +384,8 @@ def test_engine_dispatch_and_frame_accumulator():
 def test_port_imports_no_jax():
     """Importing the port's entry points must not import JAX, flax, PIL
     (absent from the card's machine) or the JAX package; the frame export's
-    modules and the host rasterizer's build included."""
+    modules, the host rasterizer's build and the scene's modules
+    included."""
     code = (
         "import sys\n"
         "BLOCKED = ('jax', 'jaxlib', 'flax', 'PIL')\n"
@@ -392,6 +403,10 @@ def test_port_imports_no_jax():
         "import sph_tpu_torch.app.microbench, sph_tpu_torch.app.proto_expand\n"
         "import sph_tpu_torch.app.bench, sph_tpu_torch.viz.camera\n"
         "import sph_tpu_torch.viz.palettes, sph_tpu_torch.viz.splat\n"
+        "import sph_tpu_torch.physics.emitters, sph_tpu_torch.core.convert\n"
+        "import sph_tpu_torch.io.presets, sph_tpu_torch.scene.settings\n"
+        "import sph_tpu_torch.scene.art_presets, sph_tpu_torch.scene.river\n"
+        "import sph_tpu_torch.scene.reaction, sph_tpu_torch.scene.scene\n"
         "sph_tpu_torch.native.build.splat_library()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       BLOCKED + ('sph_tpu',)]\n"

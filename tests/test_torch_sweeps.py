@@ -88,15 +88,17 @@ CASES = {"dam_break": dam_break_case, "crowded": crowded_case,
 def port_inputs(case, device="cpu", warm=2):
     """(state, params, dims) after ``warm`` plain cell substeps on the
     CPU, moved to ``device``."""
-    from sph_tpu_torch.engine.step import run_substeps
+    from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
     spawn, half, h, active = CASES[case]()
     state = TS.state_from_spawn(spawn, device="cpu")
     params = TP.FluidParams.default(
         device="cpu", h=h, box_half=np.asarray(half, np.float32),
         ghost_face_active=active).derive_mass()
     dims = TP.compute_grid_dims(TP.SHAPE_BOX, half, (0, 0, 0), h)
-    state = run_substeps(state, params, params.dt, warm,
-                         SimConfig(n=state.n, grid_dims=dims))
+    cfg = SimConfig(n=state.n, grid_dims=dims)
+    state, _ = run_substeps(state, params,
+                            SceneBuffers.create(cfg, device="cpu"),
+                            params.dt, warm, cfg)
     move = {f.name: getattr(state, f.name).to(device)
             for f in dataclasses.fields(state)}
     pmove = {f.name: (v.to(device) if isinstance(v, torch.Tensor) else v)
@@ -252,10 +254,11 @@ STATE_FIELDS = ("pos", "vel", "acc", "density", "pressure", "foam",
 
 def run_both_transports(state, params, dims, n_sub):
     """``n_sub`` cell substeps with and without ``emit_rows``."""
-    from sph_tpu_torch.engine.step import run_substeps
+    from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
     cfg = SimConfig(n=state.n, grid_dims=dims)
-    return [run_substeps(state, params, params.dt, n_sub,
-                         dataclasses.replace(cfg, emit_rows=emit))
+    buffers = SceneBuffers.create(cfg, device=state.pos.device)
+    return [run_substeps(state, params, buffers, params.dt, n_sub,
+                         dataclasses.replace(cfg, emit_rows=emit))[0]
             for emit in (False, True)]
 
 
@@ -411,13 +414,15 @@ def test_kernel_wrappers_check_inputs_on_cuda(cuda):
 def test_cell_engine_on_cuda_matches_cpu(cuda, case):
     """20 substeps through the kernels against 20 through the plain
     versions, realigned by orig_id."""
-    from sph_tpu_torch.engine.step import run_substeps
+    from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
     outs = {}
     for dev in ("cpu", cuda):
         state, params, dims = port_inputs(case, device=dev, warm=0)
         sweeps.reset_launches()
-        st = run_substeps(state, params, params.dt, 20,
-                          SimConfig(n=state.n, grid_dims=dims))
+        cfg = SimConfig(n=state.n, grid_dims=dims)
+        st, _ = run_substeps(state, params,
+                             SceneBuffers.create(cfg, device=dev), params.dt,
+                             20, cfg)
         order = torch.argsort(st.orig_id)
         outs[str(dev)] = {f: getattr(st, f)[order].cpu()
                           for f in ("pos", "vel", "density", "valid")}
