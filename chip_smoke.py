@@ -58,9 +58,9 @@ prints no result line):
              version on a subsample;
 6c. scene  — the scene's main paths (``app/scene_paths.py``: the river
              at 65,536 asked rows, art preset 10's torus vortex and the
-             fountain at 50,000): the spawn and params of the JAX package's
-             Scene.respawn with no device argument, then 4 frames as its
-             Scene.update runs them (continuous wave, the audio reaction to
+             fountain at 50,000): the port's Scene built with no device
+             argument, then 4 frames of its Scene.update (continuous wave,
+             the audio reaction to
              ``cmd_run --audio``'s bands, the jet speed, 16 substeps), with
              the cell engine's launch counts, the invariants (the container
              or, for the river, the box and the sink), the rows the
@@ -70,6 +70,29 @@ prints no result line):
 6d. impulses — on the fountain's final state, the vortex, attractor, curl
              flow and stencil impulses on the card against the CPU, each
              timed;
+6e. reel   — ``app.main.main(["reel", "--track", <wav>, "--out", <dir>])``
+             with no device argument, on the default scene (50,000 asked
+             rows, SSFR water and the outline, 1080x1920, 30 fps, the
+             substeps uncapped: 33 or 34 a frame) over a track written
+             here with numpy (8 frames at 48 kHz, a bass tone with one hit
+             and a treble tone): 8 PNGs read back at 1080x1920 and not
+             uniform, the mux script, the cell engine's launch counts, the
+             final state inside its container, the three cell kernels
+             against their plain versions on it, the last frame rendered
+             again on the CPU from the same state (at most 1e-4 of its
+             pixels more than 1/255 apart, those pixels traced to the
+             water's pass where card and CPU part), the peak device
+             memory, and each frame's seconds split four ways (update by
+             CUDA events; the host splat; the device smoothing,
+             background and composite; the PNG);
+6f. looks  — on the reel's final state at 1080x1920: render mode 1 with
+             the outline and every post effect (bloom, streaks, trails,
+             kaleidoscope, chromatic aberration, vignette, grain, DOF from
+             its depth), render mode 2 (the instanced icosphere meshes
+             through the host triangle rasterizer) and a river scene's
+             terrain pass, each card frame held to the CPU frame of the same
+             state as the reel's is, and timed; then the synchronising CUDA
+             calls of one more reel frame (update, render, PNG), counted;
 7. micro   — ``app.microbench.main`` and ``app.proto_expand.main`` (the
              entry points of the micro-kernels) with their launch counts,
              the launch floor (a one-element torch op timed likewise),
@@ -82,7 +105,8 @@ prints no result line):
 Each phase logs its seconds.
 
 The last lines are the kernels' JSON record (each kernel with the
-configuration or path whose launches and times it reports;
+configuration or path whose launches and times it reports, and its
+launches in the reel under ``reel_launches``;
 ``cell_table_kernel`` with the times and the bound of the launch the substep
 makes, the state's ten other columns carried, and the table alone and the
 ghosts' table, launched once per ``run_substeps``, under keys of their own;
@@ -1329,10 +1353,12 @@ def phase_scene(dev, name):
     from sph_tpu_torch.core.device import card_line
     from sph_tpu_torch.core.params import rotation_matrix
     from sph_tpu_torch.engine.step import scene_stages
-    from sph_tpu_torch.scene.reaction import ReactionPhases
 
     torch.cuda.reset_peak_memory_stats(dev)
-    s, state, params, cfg, buffers = scene_paths.build(name)
+    scene = scene_paths.build(name)
+    s, state, params, cfg, buffers = (scene.settings, scene.state,
+                                      scene.params, scene.config,
+                                      scene.buffers)
     if state.pos.device != dev or buffers.terrain.device != dev:
         raise AssertionError(f"{name}: built on {state.pos.device}, not on "
                              f"{dev}")
@@ -1341,7 +1367,6 @@ def phase_scene(dev, name):
         f"{list(s.box_half)}, {s.particle_count} asked, {n_fluid} spawned, "
         f"grid {cfg.grid_dims}, river {cfg.river_mode}, fountain "
         f"{cfg.fountain_mode}")
-    phases, acc = ReactionPhases(), 0.0
     dt = torch.tensor(s.time_step, dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
 
@@ -1350,8 +1375,8 @@ def phase_scene(dev, name):
         if frame == 1:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        state, params, buffers, phases, acc, n_sub = scene_paths.frame(
-            frame, state, params, buffers, cfg, s, phases, acc)
+        n_sub = scene_paths.frame(frame, scene)
+        state, params, buffers = scene.state, scene.params, scene.buffers
         if n_sub != FRAME_SUBSTEPS:
             raise AssertionError(f"{name}: frame {frame} ran {n_sub} "
                                  f"substeps, not {FRAME_SUBSTEPS}")
@@ -1495,6 +1520,441 @@ def phase_impulses(dev, state, params):
                                  f"moved")
 
 
+# phase "reel": the music-synced reel of app.main at the default scene
+REEL_FRAMES = 8
+REEL_FPS = 30
+REEL_RATE = 48000            # Hz, the track's sample rate
+REEL_W, REEL_H = 1080, 1920  # scene/reel.py's default frame
+# the reel caps a frame at ceil((1/30 s) / 1 ms) = 34 substeps; the scene's
+# fixed-dt accumulator runs 33 or 34 of them (33.3 a frame on average)
+REEL_SUBSTEP_CAP = 34
+REEL_ROWS = 50000            # the default scene's asked rows
+# frames of one state on the card and on the CPU: at most REEL_CPU_SHARE of
+# the pixels with a channel more than 1/255 apart.  The card's exp and pow
+# can round otherwise than the CPU's by an ulp, which can flip a threshold
+# of the water's passes at a pixel and move that pixel far
+# (``trace_water`` finds the pass); the reel's last frame has shown 22 such
+# pixels of 2,073,600 (share 1.1e-5) on an H100, so the limit is about ten
+# times that
+REEL_CPU_SHARE = 1e-4
+# every post effect of phase "looks", with DOF from render mode 1's depth
+LOOK_POST = dict(bloom_strength=0.8, streak_strength=0.6,
+                 trail_half_life=0.4, kaleido_segments=6, chromatic=2.0,
+                 vignette=0.5, grain=0.1, lens_aperture=3.0,
+                 lens_focus_dist=22.0, show_outline=True)
+
+
+def write_track(path) -> str:
+    """REEL_FRAMES frames of 16-bit mono at REEL_RATE: a 55 Hz bass tone
+    that hits four times louder from the third frame on, and a 5 kHz
+    treble tone."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    n = REEL_FRAMES * REEL_RATE // REEL_FPS
+    t = np.arange(n) / REEL_RATE
+    bass = 0.2 * np.sin(2 * np.pi * 55.0 * t)
+    bass[2 * REEL_RATE // REEL_FPS:] *= 4.0
+    sig = bass + 0.1 * np.sin(2 * np.pi * 5000.0 * t)
+    wavfile.write(path, REEL_RATE,
+                  (np.clip(sig, -1, 1) * 32767).astype(np.int16))
+    return path
+
+
+class Split:
+    """Seconds a frame of the reel, by part: ``update`` (CUDA events around
+    Scene.update), ``splat`` (host clock around the water's column copy and
+    its host splat), ``smooth`` and ``composite`` (host clock, synchronised,
+    around the smoothing, and around the background and the composite),
+    ``outline`` (the wireframe drawn on the host) and ``png``."""
+
+    def __init__(self):
+        self.parts = {k: [] for k in ("update", "splat", "smooth",
+                                      "composite", "outline", "png")}
+        self.events = []
+        self.starts = []
+        self.substeps = []
+
+    def host(self, part, fn, sync=False):
+        import torch
+
+        def wrapped(*args, **kw):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            self.parts[part].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    def update(self, fn):
+        import torch
+
+        def wrapped(scene, *args, **kw):
+            self.starts.append(time.perf_counter())
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            n = fn(scene, *args, **kw)
+            stop.record()
+            self.events.append((start, stop))
+            self.substeps.append(n)
+            return n
+        return wrapped
+
+    def per_frame(self, end: float) -> dict:
+        """Each part's seconds summed over a frame, one list a part, and
+        each frame's wall seconds (from its update to the next frame's, the
+        last to ``end``) under ``frame``."""
+        import torch
+        torch.cuda.synchronize()
+        out = {"update": [a.elapsed_time(b) / 1e3 for a, b in self.events]}
+        # render_water calls state_columns and splat_depth_thickness, and
+        # render_background and composite, once each a frame
+        for part, calls in (("splat", 2), ("smooth", 1), ("composite", 2),
+                            ("outline", 1), ("png", 1)):
+            xs = self.parts[part]
+            if len(xs) != REEL_FRAMES * calls:
+                raise AssertionError(
+                    f"reel split: {len(xs)} timed calls of {part}, expected "
+                    f"{calls} in each of {REEL_FRAMES} frames")
+            out[part] = [sum(xs[i:i + calls]) for i in range(0, len(xs),
+                                                              calls)]
+        if len(out["update"]) != REEL_FRAMES:
+            raise AssertionError(f"reel split: {len(out['update'])} updates")
+        out["frame"] = [b - a for a, b in zip(self.starts,
+                                              self.starts[1:] + [end])]
+        return out
+
+
+def count_syncs(fn):
+    """(result, synchronising CUDA calls by the source line that made them)
+    of ``fn()`` under torch's synchronisation check in its warning mode."""
+    import collections
+    import os
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def scene_copy(scene, dev):
+    """A copy of ``scene`` on ``dev``: its state, params and buffers moved
+    there (or shared, on their own device), its settings, phases, live
+    values and camera copied, its post chain's history dropped."""
+    import copy
+    import dataclasses
+
+    import torch
+    out = copy.copy(scene)
+    out.device = torch.device(dev)
+    out.state = to_device(scene.state, dev)
+    out.params = to_device(scene.params, dev)
+    out.buffers = to_device(scene.buffers, dev)
+    out.settings = copy.deepcopy(scene.settings)
+    out.phases = dataclasses.replace(scene.phases)
+    out.live = dataclasses.replace(scene.live)
+    out.camera = copy.deepcopy(scene.camera)
+    out.post_state = None
+    return out
+
+
+def frames_close(label, card, host, trace=None) -> dict:
+    """Hold a card frame to the CPU frame of the same state: at most
+    REEL_CPU_SHARE of the pixels with a channel more than 1/255 apart;
+    return the differences.  ``trace``, if given, is called with the
+    pixels apart ([H, W] bool) before the check."""
+    import numpy as np
+    if card.shape != host.shape or card.dtype != np.uint8:
+        raise AssertionError(f"{label}: card frame {card.shape} "
+                             f"{card.dtype}, CPU frame {host.shape}")
+    diff = np.abs(card.astype(int) - host.astype(int))
+    far = (diff > 1).any(-1)
+    off = float(far.mean())
+    out = {"max_abs_diff": int(diff.max()), "share_off": off}
+    log(f"{label}: card frame against the CPU frame of the same state: max "
+        f"channel difference {out['max_abs_diff']}/255, {int(far.sum())} "
+        f"pixels (share {off!r}) more than 1/255 apart")
+    if trace is not None:
+        trace(far)
+    if off > REEL_CPU_SHARE:
+        raise AssertionError(f"{label}: card and CPU frames differ ({out})")
+    if not (card != card[0, 0]).any():
+        raise AssertionError(f"{label}: the frame is uniform")
+    return out
+
+
+def trace_water(scene, dev, off) -> dict:
+    """Trace the pixels ``off`` ([H, W] bool) where the card's water frame
+    of ``scene`` and the CPU's differ to the pass where they part: pass 1,
+    the splat, runs once on the host; the smoothing runs on the card and
+    on the CPU from that splat; the composite runs on the card and on the
+    CPU from the card's smoothed depth.  Logs and returns the counts."""
+    import numpy as np
+    import torch
+    from sph_tpu_torch.scene.settings import to_viz_params, to_water_params
+    from sph_tpu_torch.viz import ssfr
+
+    s, w, h = scene.settings, REEL_W, REEL_H
+    wp = to_water_params(s)
+    vp = to_viz_params(s, anim_time=scene.phases.anim_time,
+                       hue_shift_live=scene.live.hue_shift_deg,
+                       bright_mul_live=scene.live.bright_mul)
+    cam = scene._camera_now()
+    view, proj = cam.view_matrix(), cam.proj_matrix(w / h)
+    r = 0.5 * s.h * scene.live.radius_scale * wp.radius_scale
+    cols = ssfr.state_columns(scene.state)
+    draw = (cols[:, 4] > 0) & (cols[:, 5] == 0)
+    splat = ssfr.splat_depth_thickness(cols[:, :3], cols[:, 3], view, proj,
+                                       w, h, r, mask=draw)
+    scale = float(proj[1, 1]) * h * 0.5
+    smooth = {d: ssfr.smooth_depth(torch.as_tensor(splat[0], device=d),
+                                   wp.smooth_iterations, r, scale, wp)
+              for d in (dev, "cpu")}
+    dz = np.abs(smooth[dev].cpu().numpy() - smooth["cpu"].numpy())
+    frames = {}
+    for d in (dev, "cpu"):
+        depth, thick, foam = (torch.as_tensor(a, device=d) for a in (
+            smooth[dev].cpu().numpy(), splat[1], splat[2]))
+        bg = ssfr.render_background(w, h, view, proj, wp, device=d)
+        img = ssfr.composite(depth, thick, foam, bg, view, (h, w),
+                             float(proj[0, 0]), float(proj[1, 1]), wp, vp)
+        frames[d] = (torch.clamp(img, 0.0, 1.0) * 255.0).to(
+            torch.uint8).cpu().numpy().astype(int)
+    shade = (np.abs(frames[dev] - frames["cpu"]) > 1).any(-1)
+    # a pixel's normal reads its four neighbours' depths
+    moved = dz > 1e-4
+    near = moved.copy()
+    for axis in (0, 1):
+        for step in (-1, 1):
+            near |= np.roll(moved, step, axis=axis)
+    out = {"depth_differs": int((dz > 0).sum()),
+           "depth_differs_1e-4": int(moved.sum()),
+           "depth_max_diff": float(dz.max()),
+           "composite_off": int(shade.sum()),
+           "off": int(off.sum()),
+           "off_by_depth": int((off & near).sum()),
+           "off_by_composite": int((off & shade).sum())}
+    log(f"reel last frame, traced by pass: the smoothed depth differs "
+        f"between card and CPU at {out['depth_differs']} pixels, by more "
+        f"than 1e-4 at {out['depth_differs_1e-4']} (max "
+        f"{out['depth_max_diff']!r}); the composite from one smoothed depth puts {out['composite_off']} "
+        f"pixels more than 1/255 apart; of the frame's {out['off']} pixels "
+        f"apart, {out['off_by_depth']} lie on or beside a depth that moved "
+        f"more than 1e-4 and {out['off_by_composite']} are apart in the "
+        f"composite alone")
+    return out
+
+
+def phase_reel(dev):
+    """``app.main.main(["reel", ...])`` with no device argument on the
+    default scene: the frames and the mux script written, the cell
+    engine's launches, the final state inside its container, the cell
+    kernels against their plain versions on it, the last frame rendered
+    again on the CPU from the same state, and the seconds of a frame split
+    four ways.  Returns (launches, scene)."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reel_") as tmp:
+        return reel_in(dev, tmp)
+
+
+def reel_in(dev, tmp):
+    """:func:`phase_reel` with its files in the directory ``tmp``."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+    from sph_tpu_torch.app import main as app_main
+    from sph_tpu_torch.core.device import card_line
+    from sph_tpu_torch.engine.step import substeps_for_frame
+    from sph_tpu_torch.scene import reel
+    from sph_tpu_torch.scene import scene as scene_mod
+    from sph_tpu_torch.viz import ssfr, splat
+
+    wav = write_track(os.path.join(tmp, "track.wav"))
+    out_dir = os.path.join(tmp, "frames")
+    split, grabbed = Split(), {}
+    patched = [(ssfr, "state_columns"), (ssfr, "splat_depth_thickness"),
+               (ssfr, "smooth_depth"), (ssfr, "render_background"),
+               (ssfr, "composite"), (reel, "save_png"),
+               (reel, "export_reel"), (scene_mod.Scene, "update"),
+               (scene_mod.Scene, "_overlay_lines")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in patched]
+    export = reel.export_reel
+
+    def grab(scene, cfg, **kw):
+        grabbed["scene"] = scene
+        return export(scene, cfg, **kw)
+
+    ssfr.state_columns = split.host("splat", ssfr.state_columns)
+    ssfr.splat_depth_thickness = split.host("splat",
+                                            ssfr.splat_depth_thickness)
+    for part, name in (("smooth", "smooth_depth"),
+                       ("composite", "render_background"),
+                       ("composite", "composite")):
+        setattr(ssfr, name, split.host(part, getattr(ssfr, name), sync=True))
+    scene_mod.Scene._overlay_lines = split.host(
+        "outline", scene_mod.Scene._overlay_lines)
+    reel.save_png = split.host("png", reel.save_png)
+    reel.export_reel = grab
+    scene_mod.Scene.update = split.update(scene_mod.Scene.update)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            app_main.main(["reel", "--track", wav, "--out", out_dir])
+        torch.cuda.synchronize()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    end = time.perf_counter()
+    wall = end - t0
+    counts = launches()
+    log(f"reel: the entry point printed {printed.getvalue().strip()}")
+    scene = grabbed["scene"]
+    s = scene.settings
+    if scene.state.pos.device != dev:
+        raise AssertionError(f"reel: the scene is on {scene.state.pos.device}")
+    if (s.particle_count, s.render_mode, scene.config.neighbor_impl) != (
+            REEL_ROWS, 0, "cell"):
+        raise AssertionError(f"reel: not the default scene ({s.particle_count}"
+                             f" rows, render mode {s.render_mode}, "
+                             f"{scene.config.neighbor_impl})")
+    expect_sub, acc = [], 0.0
+    for _ in range(REEL_FRAMES):
+        n, acc = substeps_for_frame(1.0 / REEL_FPS, s.time_step,
+                                    REEL_SUBSTEP_CAP, acc)
+        expect_sub.append(n)
+    if split.substeps != expect_sub:
+        raise AssertionError(f"reel: substeps a frame {split.substeps}, "
+                             f"expected {expect_sub}")
+    names = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+    if names != [f"frame_{f:05d}.png" for f in range(REEL_FRAMES)]:
+        raise AssertionError(f"reel: frames written {names}")
+    if not os.access(os.path.join(out_dir, "mux_reel.sh"), os.X_OK):
+        raise AssertionError("reel: no mux script")
+    for name in names:
+        img = splat.read_png(os.path.join(out_dir, name))
+        if img.shape != (REEL_H, REEL_W, 3) or not (img != img[0, 0]).any():
+            raise AssertionError(f"reel: {name} is {img.shape}, or uniform")
+    total = sum(expect_sub)
+    expect = dict.fromkeys(counts, 0)
+    expect.update(cell_table=total, density=total, force_xsph=total)
+    if counts != expect:
+        raise AssertionError(f"reel: launches {counts}, expected {expect}")
+    state, params = scene.state, scene.params
+    fl = state.fluid_mask()
+    for f in ("pos", "vel", "density"):
+        if not bool(torch.isfinite(getattr(state, f)[fl]).all()):
+            raise AssertionError(f"reel: non-finite {f}")
+    off = container_offset(state, params)
+    if not off <= 1e-4:
+        raise AssertionError(f"reel: a fluid row is {off} outside the "
+                             f"container")
+    dt = torch.tensor(s.time_step, dtype=torch.float32, device=dev)
+    check_scene_kernels("reel final", state, params, scene.config, dt)
+
+    per = split.per_frame(end)
+    frame_s = wall / REEL_FRAMES
+    log(f"reel: {REEL_FRAMES} frames at {REEL_W}x{REEL_H} of "
+        f"{int(fl.sum())} fluid rows, substeps by frame {expect_sub}, "
+        f"launches {counts}; {wall!r} s in all ({frame_s!r} s a frame, the "
+        f"first frame's warm-up included); peak device memory "
+        f"{torch.cuda.max_memory_allocated(dev)} bytes, on {card_line()}")
+    per["device"] = [a + b for a, b in zip(per["smooth"], per["composite"])]
+    per["other"] = [frame - sum(parts) for frame, *parts in zip(
+        per["frame"], per["update"], per["splat"], per["device"],
+        per["outline"], per["png"])]
+    for part, xs in per.items():
+        log(f"reel: {part} seconds by frame {xs!r}; mean of frames 2-"
+            f"{REEL_FRAMES} {sum(xs[1:]) / len(xs[1:])!r}")
+    log("reel: the four parts are update, splat, device (smooth + "
+        "composite) and png; other = the frame's seconds less them and the "
+        "outline (the frame's copy to the host, the reaction's and the "
+        "reel's host work)")
+
+    # the last frame again, rendered on the CPU from the same state
+    cpu = scene_copy(scene, "cpu")
+    t0 = time.perf_counter()
+    host = cpu.render(REEL_W, REEL_H)
+    log(f"reel: the last frame on the CPU took {time.perf_counter() - t0!r}"
+        f" s")
+    frames_close("reel last frame", splat.read_png(os.path.join(
+        out_dir, names[-1])), host,
+        trace=lambda far: trace_water(scene, dev, far))
+    return counts, scene
+
+
+def reel_syncs(scene) -> None:
+    """The synchronising CUDA calls of one more frame of ``scene``
+    (update, render, PNG), logged."""
+    import os
+    import tempfile
+
+    from sph_tpu_torch.viz import splat
+    n_sub, syncs_update = count_syncs(lambda: scene.update(
+        1.0 / REEL_FPS, bands=(0.5, 0.2, 0.1), max_substeps=REEL_SUBSTEP_CAP))
+    img, syncs_render = count_syncs(lambda: scene.render(REEL_W, REEL_H))
+    with tempfile.TemporaryDirectory() as tmp:
+        _, syncs_png = count_syncs(lambda: splat.save_png(
+            img, os.path.join(tmp, "frame.png")))
+    log(f"reel: synchronising CUDA calls of a frame (torch's "
+        f"synchronisation check in its warning mode): update "
+        f"{sum(syncs_update.values())} ({n_sub} substeps), render "
+        f"{sum(syncs_render.values())}, PNG {sum(syncs_png.values())}")
+    for part, where in (("update", syncs_update), ("render", syncs_render)):
+        log(f"reel: the {part}'s synchronising calls by source line "
+            f"{dict(where.most_common())}")
+
+
+def phase_looks(dev, scene):
+    """On the reel's final state at REEL_WxREEL_H: render mode 1 with the
+    outline and every post effect (DOF from its depth), render mode 2 (the
+    instanced icosphere meshes through the host triangle rasterizer), and a
+    river scene's terrain pass under render mode 1; each card frame held to
+    the CPU frame of the same state, each timed."""
+    import dataclasses
+
+    import torch
+    for name, look, river in (
+            ("impostors + post", dict(render_mode=1, **LOOK_POST), False),
+            ("meshes", dict(render_mode=2, show_outline=True), False),
+            ("river terrain", dict(render_mode=1, show_outline=True), True)):
+        card = scene_copy(scene, dev)
+        card.settings = dataclasses.replace(card.settings, **look)
+        if river:
+            card.enable_river(0)
+        host = scene_copy(card, "cpu")
+        times = []
+        for _ in range(2):
+            card.post_state = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = card.render(REEL_W, REEL_H)
+            times.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        ref = host.render(REEL_W, REEL_H)
+        host_s = time.perf_counter() - t0
+        log(f"look {name}: {REEL_W}x{REEL_H} on the card {times!r} s (first"
+            f" call, second call), on the CPU {host_s!r} s")
+        frames_close(f"look {name}", img, ref)
+
+
 def timed(name, fn, *args, **kw):
     """``fn(*args, **kw)``, with its seconds logged."""
     t0 = time.perf_counter()
@@ -1552,6 +2012,10 @@ def main() -> int:
         if name == "fountain_50k":
             timed("impulses", phase_impulses, dev, final, params)
         del final
+    counts["reel"], reel_scene = timed("reel", phase_reel, dev)
+    timed("looks", phase_looks, dev, reel_scene)
+    reel_syncs(reel_scene)
+    del reel_scene
     measured["micro"], counts["micro"] = timed("micro", phase_micro, dev)
 
     # each kernel's errors, times and bound at the configuration named in
@@ -1560,7 +2024,9 @@ def main() -> int:
     record = {"kernels": [
         {"name": f"{name}_kernel", "route": "cuda", "source": source,
          "replaces": replaces, "config": config,
-         "launches": counts[config][name], **measured[config][name]}
+         "launches": counts[config][name],
+         "reel_launches": counts["reel"].get(name, 0),
+         **measured[config][name]}
         for name, (source, replaces, config) in KERNELS.items()]}
     for k in record["kernels"]:
         for at in (k, k.get("second", k)):

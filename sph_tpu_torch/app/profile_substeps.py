@@ -8,8 +8,8 @@ or one scene path.
 Each window is one frame: for a bench configuration its frame prologue
 (``configs.frame_prologue``: the wave at ``rotated_512k``, nothing
 elsewhere), then 16 substeps; for a scene path (``app/scene_paths.py``)
-the frame of ``scene_paths.frame``: the audio reaction, then its 16
-substeps.  After 2 warm-up frames, times 3 windows
+the frame of ``scene_paths.frame`` (``Scene.update``): the audio reaction,
+then its 16 substeps.  After 2 warm-up frames, times 3 windows
 with the host clock around synchronised work (no profiler), then profiles
 one more window with ``torch.profiler`` (CPU and CUDA activity).
 ``--emit-rows`` runs the cell engine with ``SimConfig.emit_rows``.
@@ -33,7 +33,6 @@ import torch
 
 from sph_tpu_torch.app import configs, scene_paths
 from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
-from sph_tpu_torch.scene.reaction import ReactionPhases
 
 WARMUP_FRAMES, SUBSTEPS, WINDOWS, TOP = 2, 16, 3, 12
 
@@ -67,22 +66,21 @@ def _bench_frames(name: str, emit_rows: bool, substeps: int):
 
 
 def _scene_frames(name: str, emit_rows: bool, substeps: int):
-    """(start state, frame: state -> state) of a scene path; the frame
-    carries the params, buffers, phases and accumulator along."""
-    s, state, params, cfg, buffers = scene_paths.build(name)
-    cfg = dataclasses.replace(cfg, emit_rows=emit_rows)
-    carry = [params, buffers, ReactionPhases(), 0.0, 0]
+    """(start state, frame: state -> state) of a scene path; the scene
+    carries its own state, params, buffers, phases and accumulator, so the
+    frame ignores the state it is given."""
+    scene = scene_paths.build(name)
+    scene.config = dataclasses.replace(scene.config, emit_rows=emit_rows)
+    index = [0]
 
-    def frame(st):
-        p, b, ph, acc, index = carry
-        st, p, b, ph, acc, n = scene_paths.frame(index, st, p, b, cfg, s, ph,
-                                                 acc)
+    def frame(_):
+        n = scene_paths.frame(index[0], scene)
         if n != substeps:
-            raise RuntimeError(f"{name}: frame {index} ran {n} substeps, "
-                               f"not {substeps}")
-        carry[:] = [p, b, ph, acc, index + 1]
-        return st
-    return state, frame
+            raise RuntimeError(f"{name}: frame {index[0]} ran {n} "
+                               f"substeps, not {substeps}")
+        index[0] += 1
+        return scene.state
+    return scene.state, frame
 
 
 def profile(name: str, emit_rows: bool = False,

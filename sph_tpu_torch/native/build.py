@@ -1,5 +1,6 @@
-"""Build ``csrc/*.cu`` with nvcc, and the host C++ of ``native/`` with
-g++, and load them with ctypes.
+"""Build ``csrc/*.cu`` with nvcc, and the host C++ of ``native/`` (the
+splat and triangle rasterizers, the audio core) with g++, and load them
+with ctypes.
 
 Counterpart of ``sph_tpu/native/__init__.py:23-51``, with no fallback:
 a missing compiler or a failed build raises.  Each library is built at
@@ -165,12 +166,38 @@ def host_library_path(name: str) -> str:
 
 @functools.lru_cache(maxsize=None)
 def splat_library() -> ctypes.CDLL:
-    """The host painter-splat rasterizer (``native/splat_raster.cpp``)
-    with its C signature declared."""
+    """The host painter-splat rasterizers (``native/splat_raster.cpp``:
+    the particle splats and the SSFR water's first pass) with their C
+    signatures declared."""
     lib = ctypes.CDLL(host_library_path("splat_raster"))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.splat_raster.argtypes = [i, p, p, p, p, i, i, p, i, p, p, i, p, p]
     lib.splat_raster.restype = None
+    lib.ssfr_splat.argtypes = [i, p, p, p, p, p, f, i, i, p, p, p]
+    lib.ssfr_splat.restype = None
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def tri_library() -> ctypes.CDLL:
+    """The host triangle rasterizer (``native/tri_raster.cpp``) with its C
+    signature declared."""
+    lib = ctypes.CDLL(host_library_path("tri_raster"))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rasterize_tris.argtypes = [p, p, i, i, p, p, p, p, p, p, p,
+                                   ctypes.c_int64]
+    lib.rasterize_tris.restype = None
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def audio_library() -> ctypes.CDLL:
+    """The host band-split and envelope core (``native/audio_dsp.cpp``)
+    with its C signature declared."""
+    lib = ctypes.CDLL(host_library_path("audio_dsp"))
+    p, i64, f = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+    lib.sph_audio_analyze.argtypes = [p, i64, p, i64, f, f, f, f, p, p, p, p]
+    lib.sph_audio_analyze.restype = None
     return lib
 
 

@@ -1,10 +1,12 @@
-// Painter-splat rasterizer: the host core of the headless particle
-// renderer (sph_tpu_torch/viz/splat.py), built with g++ by
-// sph_tpu_torch/native/build.py.  A copy of ``splat_raster`` in
-// sph_tpu/native/splat_raster.cpp, so that frames of the two packages
-// compose alike pixel for pixel.  Particles arrive painter-sorted (far ->
-// near), each overwrites its disc footprint, with optional fake-sphere
-// shading (particleImpostor.frag:252-258); the numpy loop
+// Painter-splat rasterizers: the host cores of the headless particle
+// renderer (sph_tpu_torch/viz/splat.py) and of the SSFR water's first pass
+// (sph_tpu_torch/viz/ssfr.py), built with g++ by
+// sph_tpu_torch/native/build.py.  A copy of sph_tpu/native/splat_raster.cpp,
+// so that frames of the two packages compose alike pixel for pixel.
+//
+// ``splat_raster``: particles arrive painter-sorted (far -> near), each
+// overwrites its disc footprint, with optional fake-sphere shading
+// (particleImpostor.frag:252-258); the numpy loop
 // ``splat.render_frame_plain`` is its plain version.
 #include <cmath>
 #include <cstdint>
@@ -66,6 +68,49 @@ void splat_raster(int n,
                 px[1] = pg;
                 px[2] = pb;
                 if (zbuf && depth_in) zbuf[size_t(y) * width + x] = depth_in[i];
+            }
+        }
+    }
+}
+
+// SSFR pass-1 splatting (sph_tpu_torch/viz/ssfr.py splat_depth_thickness):
+// particles arrive painter-sorted by view z ascending (most negative =
+// farthest first), each ASSIGNS its sphere-surface depth (near overwrites
+// far) and adds Gaussian thickness + foam blobs (fluidDepth.frag /
+// fluidThickness.frag).  ``ssfr.splat_depth_thickness_plain`` is its plain
+// version, the same float32 operations in the same order.
+void ssfr_splat(int n,
+                const float* cx, const float* cy,
+                const float* vz,          // view z (negative in front)
+                const float* rad_px,      // clamped [0.6, 6.0]
+                const float* foam,
+                float particle_radius,
+                int width, int height,
+                float* depth,             // [h,w] prefilled 0
+                float* thick,             // [h,w] prefilled 0
+                float* foam_img) {        // [h,w] prefilled 0
+    const int fp = 3;                     // fixed footprint, ssfr.py r=3
+    for (int i = 0; i < n; ++i) {
+        const float r = rad_px[i];
+        const float r2 = r * r;
+        const float z = vz[i];
+        const float fo = foam[i];
+        for (int dy = -fp; dy <= fp; ++dy) {
+            for (int dx = -fp; dx <= fp; ++dx) {
+                const float d2 = float(dx * dx + dy * dy);
+                if (d2 > r2) continue;
+                const int x = int(cx[i] + float(dx));
+                const int y = int(cy[i] + float(dy));
+                if (x < 0 || x >= width || y < 0 || y >= height) continue;
+                const size_t p = size_t(y) * width + x;
+                const float denom = r2 > 0.36f ? r2 : 0.36f;
+                float s = 1.0f - d2 / denom;
+                if (s < 0.0f) s = 0.0f;
+                depth[p] = z + particle_radius * std::sqrt(s);
+                const float gden = 0.5f * r2 > 0.18f ? 0.5f * r2 : 0.18f;
+                const float g = std::exp(-d2 / gden);
+                thick[p] += g;
+                foam_img[p] += fo * g;
             }
         }
     }

@@ -1,6 +1,6 @@
 """Scene-level settings + the full ~140-key preset schema (counterpart of
 ``sph_tpu/scene/settings.py``, copied: the port imports nothing of the
-JAX package).  ``to_water_params`` comes with the port of ``viz/ssfr``.
+JAX package).
 
 The reference's ``Scene0p`` god object owns every user-facing knob and
 (de)serializes them in ``GatherPreset`` / ``ApplyPresetKV``
@@ -372,6 +372,30 @@ def needs_respawn(old: SceneSettings, new: SceneSettings) -> bool:
     # sets pendingReset only on count/shape/mix edits); the grid is
     # retracked by Scene._track_grid (SPHFluid3D.cpp:282-304 analogue)
     return old.shape_type != new.shape_type
+
+
+def to_water_params(s: SceneSettings):
+    """SceneSettings -> the SSFR water-surface WaterParams
+    (``sph_tpu/scene/settings.py:374-393``)."""
+    from sph_tpu_torch.viz.ssfr import WaterParams
+    return WaterParams(
+        smooth_iterations=s.smooth_iterations,
+        world_filter_scale=s.world_filter_scale,
+        surface_merge=s.surface_merge,
+        thickness_strength=s.thickness_strength,
+        thickness_falloff=s.thickness_falloff,
+        radius_scale=s.render_radius_scale,
+        extinction=tuple(s.water_extinction),
+        thickness_scale=s.thickness_scale,
+        sun_dir=tuple(s.sun_dir), sun_color=tuple(s.sun_color),
+        deep_color=tuple(s.deep_water_color),
+        specular_power=s.specular_power,
+        specular_strength=s.specular_strength,
+        refraction_strength=s.refraction_strength,
+        fresnel_bias=s.fresnel_bias,
+        sky_horizon=tuple(s.sky_horizon), sky_zenith=tuple(s.sky_zenith),
+        foam_amount=s.foam_amount, exposure=s.exposure,
+        sky_on=s.sky_on, bg_color=tuple(s.bg_color))
 
 
 def to_viz_params(s: SceneSettings, anim_time: float = 0.0,

@@ -64,6 +64,15 @@ def _vec(values, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=like.device)
 
 
+def div(t: torch.Tensor, x: float) -> torch.Tensor:
+    """``t / x`` for a host scalar ``x``, divided on ``t``'s device as one
+    tensor by another.  Torch's CUDA kernels multiply by a host scalar's
+    reciprocal instead, which can differ from the quotient (the CPU's, and
+    the JAX package's) by an ulp; the image passes that floor or hash a
+    coordinate (``viz/ssfr.py``, ``viz/postfx.py``) use this."""
+    return t / torch.full((), x, dtype=t.dtype, device=t.device)
+
+
 def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=-1))
 

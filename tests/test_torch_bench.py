@@ -5,10 +5,23 @@ seconds."""
 import json
 
 import pytest
+import torch
 
 import bench as jax_bench
 from sph_tpu_torch.app import bench
 from sph_tpu_torch.app.configs import BenchConfig
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 TINY = BenchConfig(name="tiny_2k", n_target=2048, box_half=(7.0, 7.0, 7.0))
 N_SUB = 3

@@ -39,6 +39,18 @@ from sph_tpu_torch.native import build
 from sph_tpu_torch.neighbors.sweeps import make_pvec
 from sph_tpu_torch.physics import brute_kernels as BK
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # tolerances of the plain versions against the Pallas kernels and of the
 # kernels against the plain versions (chip_smoke.py): float32 summation
 # order differs (lane-reduction tree, warp slices, row chunks)

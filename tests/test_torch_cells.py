@@ -24,6 +24,18 @@ from sph_tpu_torch.core import params as TP
 from sph_tpu_torch.core import state as TS
 from sph_tpu_torch.neighbors import cells
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NUM_CELLS = 12
 # cell occupancy per fixture (one count per cell); every fixture adds rows
 # outside the table (key = the number of cells) after the table rows, except

@@ -25,6 +25,18 @@ from sph_tpu_torch.core.convert import state_from_numpy
 from sph_tpu_torch.physics import constraints as TC
 from sph_tpu_torch.scene import river as TRV
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # float32 projections of points within ~10 of the origin
 POS_ATOL, NRM_ATOL, VEL_ATOL = 2e-5, 2e-5, 1e-4
 # each shape with the half extents SurpriseMe gives it

@@ -16,6 +16,18 @@ from sph_tpu.physics import emitters as JE
 from sph_tpu_torch.core.convert import params_from_numpy, state_from_numpy
 from sph_tpu_torch.physics import emitters as TE
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the seed is the fountain's dispatch counter, a uint32 that wraps
 SEEDS = (0, 1, 7, 1234567, 2**31 + 5, 2**32 - 1)
 N = 2048

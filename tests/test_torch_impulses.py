@@ -21,6 +21,18 @@ import numpy as np
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # tests/test_brute_pallas.py:40-42
 POS_TOL, VEL_TOL, RHO_TOL = 1e-4, 1e-3, 1.0
 # the wave's kick: |A| <= 1 and theta = k p.d + phase is about 30 at

@@ -32,6 +32,18 @@ import torch
 from sph_tpu_torch.app import microbench as MB
 from sph_tpu_torch.app import proto_expand as PE
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = {"PROTO_NROW": "4", "PROTO_S": "256", "PROTO_MAXR": "64"}
 

@@ -31,6 +31,18 @@ import numpy as np
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # tests/test_brute_pallas.py:40-42
 POS_TOL, VEL_TOL, RHO_TOL = 1e-4, 1e-3, 1.0
 N_SUB = 20
@@ -434,7 +446,9 @@ def test_scene_path_builds_as_the_jax_scene(name):
     scene, bit for bit: settings, state, params and buffers."""
     from sph_tpu_torch.app import scene_paths
     js, jst, jp, jcfg, jbuf = jax_scene_build(name, count=1500)
-    s, st, p, cfg, buf = scene_paths.build(name, count=1500, device="cpu")
+    scene = scene_paths.build(name, count=1500, device="cpu")
+    s, st, p, cfg, buf = (scene.settings, scene.state, scene.params,
+                          scene.config, scene.buffers)
     assert dataclasses.asdict(s) == dataclasses.asdict(js)
     for obj, ref in ((st, jst), (p, jp), (buf, jbuf)):
         for f, v in to_numpy(ref).items():
@@ -460,26 +474,25 @@ FRAME_CHECK_SUBSTEPS = {"river_65k": 1}
 def test_scene_path_frame_matches_jax(name):
     """The first frame of the path at 1,500 asked rows (the audio
     reaction, then the vortex, the fountain or the river's stages; 16
-    substeps, the river's first only): the port's cell engine (plain)
-    against JAX ``brute``, realigned by orig_id."""
+    substeps, the river's first only, its ``Scene.update`` capped at 1):
+    the port's cell engine (plain) against JAX ``brute``, realigned by
+    orig_id."""
     from sph_tpu_torch.app import scene_paths
-    from sph_tpu_torch.engine.step import run_substeps
-    from sph_tpu_torch.scene.reaction import ReactionPhases
+    from sph_tpu_torch.engine.step import substeps_for_frame
+    from sph_tpu_torch.scene.scene import MAX_SUBSTEPS_PER_FRAME
     k = FRAME_CHECK_SUBSTEPS.get(name, 16)
     (_, done, ref, _), = jax_scene_frames(name, 1, engine="brute",
                                           count=1500, substeps=k)
-    s, st, p, cfg, buf = scene_paths.build(name, count=1500, device="cpu")
-    if k == 16:
-        st, p, buf, _, _, n_sub = scene_paths.frame(0, st, p, buf, cfg, s,
-                                                    ReactionPhases(), 0.0)
-    else:
-        st, p, _, _, n_sub, dt = scene_paths.frame_start(
-            0, st, p, s, ReactionPhases(), 0.0)
-        assert n_sub == 16
-        st, buf = run_substeps(st, p, buf, dt, k, cfg)
-        n_sub = k
+    scene = scene_paths.build(name, count=1500, device="cpu")
+    uncapped, _ = substeps_for_frame(scene_paths.FRAME_DT,
+                                     scene.settings.time_step,
+                                     MAX_SUBSTEPS_PER_FRAME,
+                                     scene.dt_accumulator)
+    assert uncapped == 16
+    n_sub = scene_paths.frame(0, scene,
+                              max_substeps=k if k != uncapped else None)
     assert n_sub == done == k
-    err = realigned_errors(to_numpy(ref), to_numpy(st))
+    err = realigned_errors(to_numpy(ref), to_numpy(scene.state))
     assert err["pos"] < POS_TOL, err
     assert err["vel"] < VEL_TOL, err
     assert err["density"] < RHO_TOL, err

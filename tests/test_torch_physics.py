@@ -20,6 +20,18 @@ from sph_tpu_torch.physics import common as TC
 from sph_tpu_torch.physics import constraints as TCON
 from sph_tpu_torch.physics import kernels as TK
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-6
 
 

@@ -28,6 +28,18 @@ from sph_tpu_torch.scene import river as TRV
 from sph_tpu_torch.scene import scene as TSC
 from sph_tpu_torch.scene import settings as TSET
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRESET_FILES = sorted(glob.glob(os.path.join(REPO, "presets", "*.txt")))
 # the velocities after a few frames of impulses (each within 1e-5 of

@@ -9,6 +9,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from sph_tpu.app import configs as JCFG
 from sph_tpu.core import params as JP
@@ -18,6 +19,18 @@ from sph_tpu_torch.app import configs as TCFG
 from sph_tpu_torch.core.convert import params_from_numpy, state_from_numpy
 from sph_tpu_torch.core.params import SimConfig
 from sph_tpu_torch.engine import step as TSTEP
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 # tests/test_brute_pallas.py:40-42
 POS_TOL, VEL_TOL, RHO_TOL = 1e-4, 1e-3, 1.0

@@ -28,6 +28,18 @@ from sph_tpu_torch.core import state as TS
 from sph_tpu_torch.core.params import SimConfig
 from sph_tpu_torch.neighbors import cells, sweeps
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # tolerances of the plain versions against the oracle (different pair
 # summation order), and of the kernels against the plain versions
 RHO_RTOL, RHO_ATOL = 1e-5, 1e-2       # tests/test_solver_equivalence.py:49

@@ -44,6 +44,18 @@ from sph_tpu_torch.viz import camera as TCAM
 from sph_tpu_torch.viz import palettes as TP
 from sph_tpu_torch.viz import splat as TSPLAT
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several processes at once, where each process's pool of torch
+    threads spins against the others'."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ATOL = 1e-5
 HASH_PALETTES = (15, 16, 18, 22)
 HASH_SHARE = 0.99
