@@ -100,13 +100,32 @@ prints no result line):
              the expand to the script's oracle) at the scripts' default
              sizes and at a second size where bytes bind (the smoke at
              [65,536, 512], the expand at 1,024 rows, past L2), each
-             timed likewise beside one library call.
+             timed likewise beside one library call;
+8. parallel — the multi-rank engines (``sph_tpu_torch/parallel``) at full
+             width: (a) after a warm-up frame of ``ghost_1m``, a frame of
+             16 substeps of the slab engine on one NCCL rank in this
+             process against the cell engine's frame from the same state
+             (bit-identical expected, the ROADMAP tolerances held), its
+             launches of #1-#3, ms/substep of both by CUDA events and the
+             host waits a substep; then one launch of four gloo rank
+             processes sharing the card (``parallel.group.launch`` of
+             ``parallel/run.py``): (b) ``ghost_1m`` over four slabs, within
+             pos 1e-4, vel 1e-3, density 1.0 of one device after 5
+             substeps, rows kept, ghosts unmoved and the fluid density's max
+             and mean within 2% after 16; (c) ``fountain_50k`` through the
+             router, within those tolerances after 2 substeps, rows kept
+             and the respawns counted as on one device after 2 and 16;
+             (d) the gather engine at ``dam_break_8k`` (8,192 rows), 5
+             substeps, within pos 1e-5, density 0.1 of the oracle.  Each
+             rank logs its rows, launches, ms/substep and host waits.
 
 Each phase logs its seconds.
 
 The last lines are the kernels' JSON record (each kernel with the
 configuration or path whose launches and times it reports, and its
-launches in the reel under ``reel_launches``;
+launches in the reel under ``reel_launches``, and #1-#3 their launches
+in phase ``parallel`` under ``parallel_launches``: on the one rank of (a)
+and on each rank of (b);
 ``cell_table_kernel`` with the times and the bound of the launch the substep
 makes, the state's ten other columns carried, and the table alone and the
 ghosts' table, launched once per ``run_substeps``, under keys of their own;
@@ -1955,6 +1974,257 @@ def phase_looks(dev, scene):
         frames_close(f"look {name}", img, ref)
 
 
+# phase "parallel": the multi-rank engines of sph_tpu_torch/parallel
+PARALLEL_RANKS = 4
+# the slab engine against one device (sph_tpu/parallel/dryrun.py:82 and
+# ROADMAP's tolerances), and the gather engine (tests/test_parallel.py:33-36)
+SLAB_TOL = {"pos": 1e-4, "vel": 1e-3, "density": 1.0}
+GATHER_TOL = {"pos": 1e-5, "density": 0.1}
+SLAB_SUBSTEPS = 5            # the slab engine held to the tolerances here
+ROUTER_SUBSTEPS = 2          # the router held to the tolerances here
+GATHER_SUBSTEPS = 5
+PARALLEL_RHO_RTOL = 0.02     # the density's max and mean after a frame
+
+
+def by_orig_id(state, fields=("pos", "vel", "acc", "density", "pressure",
+                              "foam", "ghost", "orig_id")):
+    """The valid rows of a port state or of a numpy dict (``parallel.run``'s
+    checkpoints), ordered by orig_id, as numpy by field."""
+    import numpy as np
+    d = state if isinstance(state, dict) else {
+        f: getattr(state, f).cpu().numpy() for f in (*fields, "valid")}
+    v = np.asarray(d["valid"]) > 0
+    o = np.argsort(np.asarray(d["orig_id"])[v], kind="stable")
+    return {f: np.asarray(d[f])[v][o] for f in fields}
+
+
+def held(label, got, want, tol) -> dict:
+    """``got`` against ``want`` (``by_orig_id``): the same rows, no NaN,
+    each field of ``tol`` within it.  Returns the errors."""
+    import numpy as np
+    if not np.array_equal(got["orig_id"], want["orig_id"]):
+        raise AssertionError(f"{label}: rows lost or duplicated "
+                             f"({len(got['orig_id'])} against "
+                             f"{len(want['orig_id'])})")
+    errs = {}
+    for f, lim in tol.items():
+        if not np.isfinite(got[f]).all():
+            raise AssertionError(f"{label}: non-finite {f}")
+        errs[f] = float(np.abs(got[f] - want[f]).max())
+        if not errs[f] < lim:
+            raise AssertionError(f"{label}: {f} err {errs[f]} >= {lim}")
+    log(f"{label}: {len(got['orig_id'])} rows, errors {errs}")
+    return errs
+
+
+def cuda_ms(fn) -> tuple:
+    """(fn()'s result, its ms by CUDA events)."""
+    import torch
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def parallel_one_rank(dev, tmp, warm, params, cfg, ref):
+    """(a): the slab engine on one NCCL rank in this process, a frame of
+    FRAME_SUBSTEPS from ``warm`` (after one untimed frame of its own from
+    the same state), against ``ref`` (the cell engine's frame from the same
+    state, after the warm-up frame that made ``warm``).  Returns its
+    launches in the timed frame."""
+    import numpy as np
+    from sph_tpu_torch.engine.step import substep
+    from sph_tpu_torch.parallel import group as G, slabs
+
+    group = G.init(0, 1, "nccl", f"file://{tmp}/rendezvous_one", device=dev)
+    try:
+        scfg = slabs.make_slab_config(cfg, 1)
+        st = slabs.shard_by_slab(warm, params, scfg, 0)
+        dt = params.dt
+        aux = slabs.prepare(st, params, dt, scfg, group)
+
+        def frame():
+            out, b = st, ref[1]
+            for _ in range(FRAME_SUBSTEPS):
+                out, b = slabs.substep(out, params, b, dt, cfg, scfg, group,
+                                       aux)
+            return out
+
+        frame()     # the path's warm-up frame (NCCL's first calls)
+        reset_launches()
+        waits = group.waits
+        out, ms = cuda_ms(frame)
+        counts = launches()
+        frame_waits = (group.waits - waits) / FRAME_SUBSTEPS
+        _, syncs = count_syncs(lambda: slabs.substep(
+            st, params, ref[1], dt, cfg, scfg, group, aux))
+        whole = slabs.gather_global(out, group)
+    finally:
+        G.close()
+    got, want = by_orig_id(whole), by_orig_id(ref[0])
+    same = all(np.array_equal(got[f], want[f]) for f in got)
+    errs = held("parallel (a) one NCCL rank, ghost_1m, a frame against the "
+                "cell engine", got, want, SLAB_TOL)
+    expect = dict.fromkeys(("cell_table", "density", "force_xsph"),
+                           FRAME_SUBSTEPS)
+    if {k: counts[k] for k in expect} != expect:
+        raise AssertionError(f"parallel (a): launches {counts}, expected "
+                             f"{expect}")
+    _, ref_syncs = count_syncs(lambda: substep(
+        warm, params, ref[1], params.dt, cfg, aux=ref[2]))
+    log(f"parallel (a): bit-identical to the cell engine: {same} (errors "
+        f"{errs}); {ms / FRAME_SUBSTEPS!r} ms/substep (CUDA events) against "
+        f"the cell engine's {ref[3] / FRAME_SUBSTEPS!r}; the group's host "
+        f"waits a substep {frame_waits!r}; synchronising calls of one "
+        f"substep {sum(syncs.values())} ({dict(syncs)}) against the cell "
+        f"engine's {sum(ref_syncs.values())} ({dict(ref_syncs)}); "
+        f"launches {counts}")
+    return {k: counts[k] for k in expect}
+
+
+def parallel_jobs(dev, tmp, warm, params, cfg):
+    """The inputs and jobs of the four-rank launch: (b) ``ghost_1m`` from
+    ``warm``, (c) the fountain path through the router, (d) the gather
+    engine at ``dam_break_8k``.  Returns (jobs, the single-device runs each
+    is held to)."""
+    import dataclasses
+
+    from sph_tpu_torch.app import configs, scene_paths
+    from sph_tpu_torch.core import convert
+    from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
+    from sph_tpu_torch.parallel import run as R
+
+    fountain = scene_paths.build("fountain_50k")
+    dam, dam_params, dam_cfg = configs.build("dam_break_8k")
+    dam_cfg = dataclasses.replace(dam_cfg, neighbor_impl="brute")
+    cases = {
+        "ghost_1m": ("slab", warm, params, cfg, SceneBuffers.create(cfg, dev),
+                     [SLAB_SUBSTEPS, FRAME_SUBSTEPS]),
+        "fountain_50k": ("slab", fountain.state, fountain.params,
+                         fountain.config, fountain.buffers,
+                         [ROUTER_SUBSTEPS, FRAME_SUBSTEPS]),
+        "dam_break_8k": ("gather", dam, dam_params, dam_cfg,
+                         SceneBuffers.create(dam_cfg, dev), [GATHER_SUBSTEPS]),
+    }
+    jobs, refs = [], {}
+    for name, (engine, st, prm, c, buf, ckpts) in cases.items():
+        path = R.save_input(f"{tmp}/{name}.npz", convert.to_numpy(st),
+                            convert.to_numpy(prm), convert.to_numpy(buf))
+        jobs.append({"name": name, "engine": engine, "input": path,
+                     "config": dataclasses.asdict(c), "checkpoints": ckpts})
+        refs[name], done, b = {}, st, buf
+        last = 0
+        for k in ckpts:
+            done, b = run_substeps(done, prm, b, prm.dt, k - last, c)
+            refs[name][k] = (by_orig_id(done), int(b.recycled))
+            last = k
+    return jobs, refs
+
+
+def phase_parallel(dev):
+    """The multi-rank engines (``sph_tpu_torch/parallel``) on the card:
+    (a) one NCCL rank in this process; (b)-(d) one launch of
+    PARALLEL_RANKS gloo rank processes sharing the card (four processes
+    time-sharing one card: their times are no multi-GPU speed).  Returns
+    the launches of #1-#3 on (a) and on each rank of (b)."""
+    import json
+    import tempfile
+
+    import numpy as np
+    from sph_tpu_torch.app import configs
+    from sph_tpu_torch.engine.step import (SceneBuffers, neighbor_aux,
+                                           run_substeps)
+    from sph_tpu_torch.parallel import group as G, run as R
+
+    start, params, cfg = configs.build("ghost_1m")
+    buffers = SceneBuffers.create(cfg, dev)
+    warm, _ = run_substeps(start, params, buffers, params.dt, FRAME_SUBSTEPS,
+                           cfg)
+    (ref, ref_buf), ref_ms = cuda_ms(lambda: run_substeps(
+        warm, params, buffers, params.dt, FRAME_SUBSTEPS, cfg))
+    aux = neighbor_aux(warm, params, params.dt, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        one = parallel_one_rank(dev, tmp, warm, params, cfg,
+                                (ref, buffers, aux, ref_ms))
+        jobs, refs = parallel_jobs(dev, tmp, warm, params, cfg)
+        with open(f"{tmp}/jobs.json", "w") as f:
+            json.dump(jobs, f)
+        t0 = time.perf_counter()
+        G.check(G.launch("sph_tpu_torch.parallel.run", PARALLEL_RANKS,
+                         [f"{tmp}/jobs.json"], tmp, backend="gloo",
+                         device="cuda", timeout=600))
+        log(f"parallel (b)-(d): {PARALLEL_RANKS} gloo ranks on one card, "
+            f"{time.perf_counter() - t0!r} s from launch to exit")
+        out = {name: {k: R.read_state(f"{tmp}/{name}_{k}.npz")
+                      for k in job["checkpoints"]}
+               for name, job in zip(refs, jobs)}
+        stats = {}
+        for name in refs:
+            stats[name] = []
+            for r in range(PARALLEL_RANKS):
+                with open(f"{tmp}/{name}_rank{r}.json") as f:
+                    stats[name].append(json.load(f))
+
+    for name, ranks in stats.items():
+        for r, st in enumerate(ranks):
+            log(f"parallel {name} rank {r}: rows {st['rows']}, launches "
+                f"{st['launches']}, ms/substep {st['ms_per_substep']} (CUDA "
+                f"events, four processes time-sharing the card), host waits "
+                f"a substep {st['waits_per_substep']}")
+    # (b) ghost_1m over four slabs
+    got5, (want5, _) = by_orig_id(out["ghost_1m"][SLAB_SUBSTEPS]), refs[
+        "ghost_1m"][SLAB_SUBSTEPS]
+    held(f"parallel (b) ghost_1m, {PARALLEL_RANKS} slabs, "
+         f"{SLAB_SUBSTEPS} substeps", got5, want5, SLAB_TOL)
+    got, (want, _) = by_orig_id(out["ghost_1m"][FRAME_SUBSTEPS]), refs[
+        "ghost_1m"][FRAME_SUBSTEPS]
+    held(f"parallel (b) ghost_1m, {FRAME_SUBSTEPS} substeps", got, want, {})
+    ghost = want["ghost"] > 0
+    start_rows = by_orig_id(warm)
+    if not np.array_equal(got["pos"][ghost], start_rows["pos"][ghost]):
+        raise AssertionError("parallel (b): a ghost moved")
+    for f in ("pos", "vel", "density"):
+        if not np.isfinite(got[f]).all():
+            raise AssertionError(f"parallel (b): non-finite {f}")
+    for stat in ("max", "mean"):
+        g = float(getattr(got["density"][~ghost].astype(np.float64), stat)())
+        w = float(getattr(want["density"][~ghost].astype(np.float64),
+                          stat)())
+        log(f"parallel (b) after {FRAME_SUBSTEPS} substeps: fluid density "
+            f"{stat} {g!r} against one device's {w!r}")
+        if not abs(g - w) <= PARALLEL_RHO_RTOL * w:
+            raise AssertionError(f"parallel (b): density {stat} {g} not "
+                                 f"within {PARALLEL_RHO_RTOL} of {w}")
+    # (c) the fountain through the router
+    for k, tol in ((ROUTER_SUBSTEPS, SLAB_TOL), (FRAME_SUBSTEPS, {})):
+        want, recycled = refs["fountain_50k"][k]
+        mine = out["fountain_50k"][k]
+        held(f"parallel (c) fountain_50k, {PARALLEL_RANKS} slabs through "
+             f"the router, {k} substeps", by_orig_id(mine), want, tol)
+        log(f"parallel (c): {mine['recycled']} rows respawned against "
+            f"{recycled} on one device after {k} substeps")
+        if mine["recycled"] != recycled:
+            raise AssertionError(f"parallel (c): {mine['recycled']} rows "
+                                 f"respawned, one device {recycled}")
+    if not recycled > 0:
+        raise AssertionError("parallel (c): the fountain respawned no row")
+    # (d) the gather engine
+    want, _ = refs["dam_break_8k"][GATHER_SUBSTEPS]
+    held(f"parallel (d) dam_break_8k, gather engine on {PARALLEL_RANKS} "
+         f"ranks against the oracle", by_orig_id(
+             out["dam_break_8k"][GATHER_SUBSTEPS]), want, GATHER_TOL)
+    four = [st["launches"] for st in stats["ghost_1m"]]
+    for r, c in enumerate(four):
+        if not (c["density"] == c["force_xsph"] == FRAME_SUBSTEPS
+                and c["cell_table"] in (FRAME_SUBSTEPS, FRAME_SUBSTEPS + 1)):
+            raise AssertionError(f"parallel (b) rank {r}: launches {c}")
+    return {k: {"one_rank": one[k], "four_ranks": [c[k] for c in four]}
+            for k in one}
+
+
 def timed(name, fn, *args, **kw):
     """``fn(*args, **kw)``, with its seconds logged."""
     t0 = time.perf_counter()
@@ -2017,6 +2287,7 @@ def main() -> int:
     reel_syncs(reel_scene)
     del reel_scene
     measured["micro"], counts["micro"] = timed("micro", phase_micro, dev)
+    par = timed("parallel", phase_parallel, dev)
 
     # each kernel's errors, times and bound at the configuration named in
     # KERNELS, and its launches in that configuration's main path (or, for
@@ -2026,6 +2297,7 @@ def main() -> int:
          "replaces": replaces, "config": config,
          "launches": counts[config][name],
          "reel_launches": counts["reel"].get(name, 0),
+         **({"parallel_launches": par[name]} if name in par else {}),
          **measured[config][name]}
         for name, (source, replaces, config) in KERNELS.items()]}
     for k in record["kernels"]:

@@ -4,6 +4,7 @@ or one scene path.
     python -m sph_tpu_torch.app.profile_substeps dam_break_8k
     python -m sph_tpu_torch.app.profile_substeps rotated_512k --emit-rows
     python -m sph_tpu_torch.app.profile_substeps fountain_50k
+    python -m sph_tpu_torch.app.profile_substeps ghost_1m --slab
 
 Each window is one frame: for a bench configuration its frame prologue
 (``configs.frame_prologue``: the wave at ``rotated_512k``, nothing
@@ -12,7 +13,10 @@ the frame of ``scene_paths.frame`` (``Scene.update``): the audio reaction,
 then its 16 substeps.  After 2 warm-up frames, times 3 windows
 with the host clock around synchronised work (no profiler), then profiles
 one more window with ``torch.profiler`` (CPU and CUDA activity).
-``--emit-rows`` runs the cell engine with ``SimConfig.emit_rows``.
+``--emit-rows`` runs the cell engine with ``SimConfig.emit_rows``;
+``--slab`` runs a bench configuration's frames on the slab engine
+(``parallel/slabs.py``) as one NCCL rank, the slab path's own cost with no
+halo and no migration.
 It prints the ms per substep of each window, the device operations
 (kernels, copies, fills) per substep, the device busy time per substep
 (the union of the device intervals), the device's idle share of the median
@@ -26,6 +30,7 @@ import argparse
 import dataclasses
 import json
 import statistics
+import tempfile
 import time
 from collections import defaultdict
 
@@ -33,6 +38,7 @@ import torch
 
 from sph_tpu_torch.app import configs, scene_paths
 from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
+from sph_tpu_torch.parallel import group as G, slabs
 
 WARMUP_FRAMES, SUBSTEPS, WINDOWS, TOP = 2, 16, 3, 12
 
@@ -65,6 +71,20 @@ def _bench_frames(name: str, emit_rows: bool, substeps: int):
     return state, frame
 
 
+def _slab_frames(name: str, substeps: int, group: G.Group):
+    """(start state, frame) of a bench configuration on the slab engine, as
+    the group's one rank."""
+    state, params, cfg = configs.build(name)
+    prologue = configs.frame_prologue(name, params, substeps)
+    scfg = slabs.make_slab_config(cfg, group.world)
+    buffers = SceneBuffers.create(cfg)
+
+    def frame(st):
+        return slabs.run_substeps(prologue(st), params, buffers, params.dt,
+                                  substeps, cfg, scfg, group)[0]
+    return slabs.shard_by_slab(state, params, scfg, group.rank), frame
+
+
 def _scene_frames(name: str, emit_rows: bool, substeps: int):
     """(start state, frame: state -> state) of a scene path; the scene
     carries its own state, params, buffers, phases and accumulator, so the
@@ -83,14 +103,34 @@ def _scene_frames(name: str, emit_rows: bool, substeps: int):
     return scene.state, frame
 
 
-def profile(name: str, emit_rows: bool = False,
+def profile(name: str, emit_rows: bool = False, slab: bool = False,
             warmup_frames: int = WARMUP_FRAMES, substeps: int = SUBSTEPS,
             windows: int = WINDOWS, top: int = TOP):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_substeps needs a CUDA card")
-    frames = (_scene_frames if name in scene_paths.PATHS else _bench_frames)
-    state, frame = frames(name, emit_rows, substeps)
+    if not slab:
+        frames = (_scene_frames if name in scene_paths.PATHS
+                  else _bench_frames)
+        return _measure(name, *frames(name, emit_rows, substeps),
+                        {"emit_rows": emit_rows}, None, warmup_frames,
+                        substeps, windows, top)
+    if emit_rows or name in scene_paths.PATHS:
+        raise ValueError("--slab runs a bench configuration's default "
+                         "transport")
+    with tempfile.TemporaryDirectory() as tmp:
+        group = G.init(0, 1, "nccl", f"file://{tmp}/rendezvous")
+        try:
+            return _measure(name, *_slab_frames(name, substeps, group),
+                            {"slab": True}, group, warmup_frames, substeps,
+                            windows, top)
+        finally:
+            G.close()
 
+
+def _measure(name, state, frame, tags, group, warmup_frames, substeps,
+             windows, top):
+    """Warm up, time and profile ``frame``; ``group``, for the slab
+    engine, counts its host waits (with each frame's ghost halo)."""
     for _ in range(warmup_frames):
         state = frame(state)
     torch.cuda.synchronize()
@@ -121,8 +161,11 @@ def profile(name: str, emit_rows: bool = False,
     busy_ms = _busy_us((e.time_range.start, e.time_range.end)
                        for e in dev) / substeps / 1e3
     med = statistics.median(ms)
+    if group is not None:       # the slab path's count exchanges
+        tags["group_waits_per_substep"] = group.waits / (
+            (warmup_frames + windows + 1) * substeps)
     out = {
-        "config": name, "emit_rows": emit_rows,
+        "config": name, **tags,
         "card": torch.cuda.get_device_name(0),
         "fluid_rows": int(state.fluid_mask().sum()),
         "ms_per_substep": ms, "median_ms_per_substep": med,
@@ -155,8 +198,10 @@ def main(argv=None) -> None:
         (*configs.CONFIGS, *scene_paths.PATHS)))
     ap.add_argument("--emit-rows", action="store_true",
                     help="the cell engine's emitted-row transport")
+    ap.add_argument("--slab", action="store_true",
+                    help="the slab engine as one NCCL rank")
     args = ap.parse_args(argv)
-    profile(args.config, emit_rows=args.emit_rows)
+    profile(args.config, emit_rows=args.emit_rows, slab=args.slab)
 
 
 if __name__ == "__main__":

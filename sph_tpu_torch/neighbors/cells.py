@@ -38,14 +38,20 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def keys_from_coords(c: torch.Tensor, mask: torch.Tensor,
+                     dims: Tuple[int, int, int]) -> torch.Tensor:
+    """y-major cell key ``x + nx*(z + nz*y)`` of cell coords ``c`` [N,3]
+    on the grid ``dims``; mask=False -> ``num_cells``."""
+    nx, ny, nz = dims
+    key = c[:, 0] + nx * (c[:, 2] + nz * c[:, 1])
+    return torch.where(mask, key, torch.full_like(key, nx * ny * nz))
+
+
 def compute_keys_ymajor(pos: torch.Tensor, mask: torch.Tensor,
                         params: FluidParams,
                         dims: Tuple[int, int, int]) -> torch.Tensor:
     """y-major cell key ``x + nx*(z + nz*y)``; mask=False -> ``num_cells``."""
-    nx, ny, nz = dims
-    c = grid_cell_coords(pos, params, dims)
-    key = c[:, 0] + nx * (c[:, 2] + nz * c[:, 1])
-    return torch.where(mask, key, torch.full_like(key, nx * ny * nz))
+    return keys_from_coords(grid_cell_coords(pos, params, dims), mask, dims)
 
 
 class CellTable(NamedTuple):
@@ -147,22 +153,31 @@ def cell_table(skey: torch.Tensor, order: torch.Tensor, pos: torch.Tensor,
 
 
 def fluid_sort(state: ParticleState, params: FluidParams,
-               dims: Tuple[int, int, int]):
+               dims: Tuple[int, int, int],
+               key: Optional[torch.Tensor] = None):
     """(skey, order) of every row, stable; rows other than fluid take key
-    ``num_cells`` and sort last."""
-    key = compute_keys_ymajor(state.pos, state.fluid_mask(), params, dims)
+    ``num_cells`` and sort last.  ``key`` [N], when given, is every row's
+    key on the grid ``dims`` (a slab's, ``parallel/slabs.py``) in place of
+    the state's own."""
+    if key is None:
+        key = compute_keys_ymajor(state.pos, state.fluid_mask(), params, dims)
     return torch.sort(key, stable=True)
 
 
 def ghost_sort(state: ParticleState, params: FluidParams,
-               dims: Tuple[int, int, int]):
+               dims: Tuple[int, int, int],
+               key: Optional[torch.Tensor] = None):
     """(skey, order) of the contributing ghosts (valid, ghost, face
-    active) only, stable; ``order`` indexes the rows of ``state``."""
+    active) only, stable; ``order`` indexes the rows of ``state``.  ``key``
+    as in :func:`fluid_sort`."""
     contrib = state.contrib_mask(params.ghost_face_active)
     rows = torch.nonzero((state.ghost > 0) & contrib).squeeze(1)
-    key = compute_keys_ymajor(state.pos[rows],
-                              torch.ones_like(rows, dtype=torch.bool),
-                              params, dims)
+    if key is None:
+        key = compute_keys_ymajor(state.pos[rows],
+                                  torch.ones_like(rows, dtype=torch.bool),
+                                  params, dims)
+    else:
+        key = key[rows]
     skey, order = torch.sort(key, stable=True)
     return skey, rows[order]
 
@@ -173,26 +188,29 @@ class CellRows(NamedTuple):
     key: torch.Tensor         # [N] i32 ascending; non-fluid = num_cells
     cell_start: torch.Tensor  # [num_cells] i32
     cell_end: torch.Tensor    # [num_cells] i32
+    order: torch.Tensor       # [N] i64: sorted row i is input row order[i]
 
 
 def build(state: ParticleState, params: FluidParams,
-          dims: Tuple[int, int, int]) -> CellRows:
+          dims: Tuple[int, int, int],
+          key: Optional[torch.Tensor] = None) -> CellRows:
     """Keys -> stable sort -> cell table.  Only fluid rows get a cell:
-    ghosts and padding take key ``num_cells`` and sort last.
+    ghosts and padding take key ``num_cells`` and sort last.  ``key``, when
+    given, is every row's key on the grid ``dims`` (:func:`fluid_sort`).
 
     Every field moves with its row, so the state stays in sorted order and
     ``orig_id`` keeps each particle's identity, as the JAX engine's does
     (``pallas_sweeps.py:1205-1206``); all of them move in the cell table's
     one launch."""
     nx, ny, nz = dims
-    skey, order = fluid_sort(state, params, dims)
+    skey, order = fluid_sort(state, params, dims, key)
     names = [f.name for f in dataclasses.fields(state)
              if f.name not in ("pos", "vel")]
     tbl = cell_table(skey, order, state.pos, state.vel, nx * ny * nz,
                      carry=[getattr(state, f) for f in names])
     s = ParticleState(pos=tbl.pos, vel=tbl.vel,
                       **dict(zip(names, tbl.carried)))
-    return CellRows(s, skey, tbl.cell_start, tbl.cell_end)
+    return CellRows(s, skey, tbl.cell_start, tbl.cell_end, order)
 
 
 class GhostRows(NamedTuple):
@@ -235,15 +253,16 @@ def ghost_near(ghost_start: torch.Tensor, ghost_end: torch.Tensor,
 
 
 def build_ghosts(state: ParticleState, params: FluidParams,
-                 dims: Tuple[int, int, int]) -> GhostRows:
+                 dims: Tuple[int, int, int],
+                 key: Optional[torch.Tensor] = None) -> GhostRows:
     """The ghost structure (counterpart of ``planes.build_ghost_tables``):
     the rows that are valid, ghosts and on an active face, with the same
-    y-major key, a stable sort and the same cell table, and their source
-    records for the force sweep and the cells near a ghost.  Ghosts never
-    move and face activation is fixed within a run, so this is built once
-    per ``run_substeps``."""
+    y-major key (or ``key``, as in :func:`fluid_sort`), a stable sort and
+    the same cell table, and their source records for the force sweep and
+    the cells near a ghost.  Ghosts never move and face activation is fixed
+    within a run, so this is built once per ``run_substeps``."""
     nx, ny, nz = dims
-    skey, order = ghost_sort(state, params, dims)
+    skey, order = ghost_sort(state, params, dims, key)
     tbl = cell_table(skey, order, state.pos, None, nx * ny * nz)
     return GhostRows(tbl.pos, tbl.cell_start, tbl.cell_end,
                      ghost_records(tbl.pos, params.rest_density, params.mass),

@@ -206,6 +206,17 @@ def pack_sources(pos, vel, rho, pv: SweepParams,
     return src
 
 
+def set_source_density(src: torch.Tensor, rows: torch.Tensor,
+                       rho: torch.Tensor, pv: SweepParams) -> None:
+    """Write the density ``rho`` of the sorted rows ``rows`` into their
+    source records ``src`` (:func:`pack_sources`' layout, in place): a slab's
+    halo rows take their owner's density after the density sweep
+    (``parallel/slabs.py``)."""
+    src[0, rows, 3] = rho
+    src[1, rows, 3] = torch.div(torch.full_like(rho, pv.mass),
+                                torch.clamp_min(rho, 1e-12))
+
+
 def _norm(v):
     return torch.sqrt(torch.sum(v * v, dim=-1))
 
