@@ -51,6 +51,23 @@ prints no result line):
              on ``dam_break_8k``'s final state the all-pairs density kernel
              is held to its plain version, a second launch bit-equal, and
              timed again beside its count of pairs within h and its bound;
+             the substep of the configuration's engine (cell or all-pairs
+             kernels) after ``neighbor_aux`` twice under torch's
+             synchronisation check (no device-to-host wait).  The frames
+             run through ``run_substeps``, so the main path is the captured
+             program (``engine/graph.py``) and its launch counts those
+             that the replays add;
+6a. graph  — on each main path's final state: 2 frames through
+             ``run_substeps_eager`` and 2 through the graph from that state,
+             every field bit-identical by orig_id; a replayed frame
+             (the prologue and ``run_captured``, after ``neighbor_aux``)
+             under the synchronisation check in its error mode; then eager
+             and graph frames in turns, ms/substep by CUDA events and on
+             the host clock.  The same after each scene path (6c), by
+             ``Scene.update`` on copies of the scene, with gravity spin off
+             and on (the reaction tips gravity every frame), and one graph
+             frame's synchronising calls by source line (none may come once
+             a substep);
 6b. export — the frame export of ``app.bench.export_frames`` on the final
              ``export_4m`` state: four PNGs read back and drawn on, the
              colors on the card equal to the port's colors of the same
@@ -92,7 +109,8 @@ prints no result line):
              through the host triangle rasterizer) and a river scene's
              terrain pass, each card frame held to the CPU frame of the same
              state as the reel's is, and timed; then the synchronising CUDA
-             calls of one more reel frame (update, render, PNG), counted;
+             calls of one more reel frame (update, render, PNG), counted by
+             source line (none of the update's may come once a substep);
 7. micro   — ``app.microbench.main`` and ``app.proto_expand.main`` (the
              entry points of the micro-kernels) with their launch counts,
              the launch floor (a one-element torch op timed likewise),
@@ -1076,6 +1094,187 @@ def check_no_host_wait(label, step, state, buffers) -> None:
     log(f"{label}: 2 substeps made no device-to-host wait")
 
 
+GRAPH_FRAMES = 2             # frames held bit-identical, eager against graph
+GRAPH_TURNS = 3              # eager and graph frames timed in turns
+
+
+def same_states(label, eager, graph) -> None:
+    """Every field of two (state, buffers) results bit-identical, the rows
+    aligned by orig_id; else name the first field that differs and its
+    largest difference."""
+    import dataclasses
+
+    import torch
+    (se, be), (sg, bg) = eager, graph
+    ie, ig = torch.argsort(se.orig_id), torch.argsort(sg.orig_id)
+    pairs = [(f.name, getattr(se, f.name)[ie], getattr(sg, f.name)[ig])
+             for f in dataclasses.fields(se)]
+    pairs += [(f"buffers.{f.name}", getattr(be, f.name), getattr(bg, f.name))
+              for f in dataclasses.fields(be)]
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{label}: {name} differs between run_substeps_eager and the "
+                f"graph (max abs {max_err(a.double(), b.double())!r})")
+
+
+def frame_ms(fn):
+    """(fn()'s result, its ms by CUDA events, its ms on the host clock)."""
+    import torch
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    h0 = time.perf_counter()
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1), (time.perf_counter() - h0) * 1e3
+
+
+def graph_turns(label, make_turn, n_sub) -> dict:
+    """GRAPH_TURNS turns of an eager frame and a graph frame from the same
+    state: ``make_turn()`` gives the turn's two frames as calls, the graph's
+    carrying the state on to the next turn.  Logs and returns the median
+    ms/substep of each by CUDA events and on the host clock."""
+    import statistics
+    times = {"eager": ([], []), "graph": ([], [])}
+    for _ in range(GRAPH_TURNS):
+        for name, fn in zip(("eager", "graph"), make_turn()):
+            _, ev, host = frame_ms(fn)
+            times[name][0].append(ev / n_sub)
+            times[name][1].append(host / n_sub)
+    out = {f"{name}_{clock}": statistics.median(v[i])
+           for name, v in times.items()
+           for i, clock in enumerate(("events_ms", "host_ms"))}
+    log(f"graph {label}: ms/substep in {GRAPH_TURNS} turns (eager, then "
+        f"graph, from one state), eager by CUDA events {times['eager'][0]!r},"
+        f" host clock {times['eager'][1]!r}; graph by CUDA events "
+        f"{times['graph'][0]!r}, host clock {times['graph'][1]!r}; medians "
+        f"{out}")
+    return out
+
+
+def check_syncs(label, syncs, n_sub) -> None:
+    """Log a frame's synchronising calls by source line; fail if a line
+    made one a substep or more (a wait inside the substep loop)."""
+    log(f"{label}: {sum(syncs.values())} synchronising calls in a frame of "
+        f"{n_sub} substeps, by source line {dict(syncs.most_common())}")
+    inner = {k: v for k, v in syncs.items() if v >= n_sub}
+    if inner:
+        raise AssertionError(f"{label}: a synchronising call every substep "
+                             f"{inner}")
+
+
+def phase_graph_bench(config, state, params, cfg):
+    """Phase ``graph`` at a bench configuration, from ``state`` (its main
+    path's final state): GRAPH_FRAMES frames of prologue + 16 substeps
+    through ``run_substeps_eager`` and through the graph, bit-identical by
+    orig_id; a replayed frame (the prologue and ``run_captured``, after
+    ``neighbor_aux``) under torch's synchronisation check in its error
+    mode; eager and graph ms/substep in turns."""
+    import torch
+    from sph_tpu_torch.app import configs
+    from sph_tpu_torch.engine import graph
+    from sph_tpu_torch.engine.step import (SceneBuffers, neighbor_aux,
+                                           run_captured, run_substeps,
+                                           run_substeps_eager)
+
+    prologue = configs.frame_prologue(config, params, FRAME_SUBSTEPS)
+    dt = params.dt
+
+    def frames(run):
+        st, b = state, SceneBuffers.create(cfg)
+        for _ in range(GRAPH_FRAMES):
+            st, b = run(prologue(st), params, b, dt, FRAME_SUBSTEPS, cfg)
+        return st, b
+
+    eager, graphed = frames(run_substeps_eager), frames(run_substeps)
+    torch.cuda.synchronize()
+    same_states(f"{config}: {GRAPH_FRAMES} frames", eager, graphed)
+    log(f"graph {config}: {GRAPH_FRAMES} frames bit-identical to "
+        f"run_substeps_eager by orig_id, every field")
+
+    st, b = graphed
+    aux = neighbor_aux(st, params, dt, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, b = run_captured(prologue(st), params, b, dt, FRAME_SUBSTEPS, cfg,
+                             aux)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"graph {config}: a replayed frame (prologue and run_captured) made "
+        f"no device-to-host wait; {graph.describe()}")
+
+    cur = [st]
+
+    def make_turn():
+        start, buf = cur[0], SceneBuffers.create(cfg)
+
+        def eager():
+            run_substeps_eager(prologue(start), params, buf, dt,
+                               FRAME_SUBSTEPS, cfg)
+
+        def graphed():
+            cur[0] = run_substeps(prologue(start), params, buf, dt,
+                                  FRAME_SUBSTEPS, cfg)[0]
+        return eager, graphed
+    return graph_turns(config, make_turn, FRAME_SUBSTEPS)
+
+
+def phase_graph_scene(dev, name, scene):
+    """Phase ``graph`` on a scene path, from ``scene`` (its final frame):
+    GRAPH_FRAMES frames of ``Scene.update`` on two copies, one with
+    ``run_substeps_eager`` in place of ``run_substeps``, bit-identical by
+    orig_id; the same with gravity spin on (the reaction tips gravity every
+    frame, so the graph must read the new value); one graph frame's
+    synchronising calls by source line; eager and graph ms/substep in
+    turns."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+    from sph_tpu_torch.app import scene_paths
+    from sph_tpu_torch.engine import step as E
+
+    def eager_update(sc, i):
+        with mock.patch.object(E, "run_substeps", E.run_substeps_eager):
+            return scene_paths.frame(i, sc)
+
+    def graph_update(sc, i):
+        return scene_paths.frame(i, sc)
+
+    for spin in (False, True):
+        runs = {}
+        for kind, update in (("eager", eager_update), ("graph", graph_update)):
+            sc = scene_copy(scene, dev)
+            sc.settings = dataclasses.replace(sc.settings, spin_on=spin)
+            gravity = []
+            for i in range(GRAPH_FRAMES):
+                update(sc, FRAMES + i)
+                gravity.append(sc.params.gravity.tolist())
+            runs[kind] = (sc.state, sc.buffers)
+        torch.cuda.synchronize()
+        same_states(f"{name} (gravity spin {spin}): {GRAPH_FRAMES} frames",
+                    runs["eager"], runs["graph"])
+        if spin and gravity[0] == gravity[1]:
+            raise AssertionError(f"{name}: gravity spin did not move gravity")
+        log(f"graph {name}: {GRAPH_FRAMES} frames of Scene.update with "
+            f"gravity spin {spin} (gravity {gravity}) bit-identical to "
+            f"run_substeps_eager by orig_id, every field")
+
+    sc = scene_copy(scene, dev)
+    n_sub, syncs = count_syncs(lambda: graph_update(sc, FRAMES))
+    check_syncs(f"graph {name}: Scene.update", syncs, n_sub)
+
+    def make_turn():
+        ecopy = scene_copy(sc, dev)
+        return (lambda: eager_update(ecopy, FRAMES + 1),
+                lambda: graph_update(sc, FRAMES + 1))
+    return graph_turns(name, make_turn, FRAME_SUBSTEPS)
+
+
 def phase_main(dev, config):
     """The port's main path: configs.build with no device (the card is
     the default), then frames of frame_prologue + run_substeps at
@@ -1167,14 +1366,13 @@ def phase_main(dev, config):
     if n_ghost:
         check_ghosts(config, start, state, rho0)
 
-    if cfg.neighbor_impl == "brute_kernel":
-        # the substep with the per-run constants built beforehand, as
-        # run_substeps runs it
-        aux = neighbor_aux(state, params, dt, cfg)
-        check_no_host_wait(
-            f"{config}: {cfg.neighbor_impl} after neighbor_aux",
-            lambda st, b: substep(st, params, b, dt, cfg, aux=aux), state,
-            SceneBuffers.create(cfg))
+    # the substep with the per-run constants built beforehand, as
+    # run_substeps runs it: the cell engine or the all-pairs kernels
+    aux = neighbor_aux(state, params, dt, cfg)
+    check_no_host_wait(
+        f"{config}: {cfg.neighbor_impl} substep after neighbor_aux",
+        lambda st, b: substep(st, params, b, dt, cfg, aux=aux), state,
+        SceneBuffers.create(cfg))
 
     ms = wall / timed * 1e3
     rate = n_fluid * timed / wall
@@ -1183,7 +1381,7 @@ def phase_main(dev, config):
         f"after a frame of warm-up); peak device memory "
         f"{torch.cuda.max_memory_allocated(dev)} bytes (build and run) on "
         f"{card_line()}")
-    return counts, state
+    return counts, state, params, cfg
 
 
 EXPORT_SUBSAMPLE = 2000      # every 2000th row for the rasterizer check
@@ -1482,7 +1680,7 @@ def phase_scene(dev, name):
             buffers)
     check_density(name, rho, REF_RHO[name])
     check_scene_kernels(f"{name} final", state, params, cfg, dt)
-    return counts, state, params
+    return counts, scene
 
 
 def check_scene_kernels(label, state, params, cfg, dt) -> None:
@@ -1939,6 +2137,7 @@ def reel_syncs(scene) -> None:
     for part, where in (("update", syncs_update), ("render", syncs_render)):
         log(f"reel: the {part}'s synchronising calls by source line "
             f"{dict(where.most_common())}")
+    check_syncs("reel: update", syncs_update, n_sub)
 
 
 def phase_looks(dev, scene):
@@ -2266,22 +2465,25 @@ def main() -> int:
                            "export_4m", plain_reps=1)}
     timed("crowded", phase_crowded, dev)
     timed("small", phase_small, dev)
-    counts = {}
+    counts, graph_ms = {}, {}
     for config in CONFIGS:
-        counts[config], final = timed(f"main {config}", phase_main, dev,
-                                      config)
+        counts[config], final, params, cfg = timed(f"main {config}",
+                                                   phase_main, dev, config)
+        graph_ms[config] = timed(f"graph {config}", phase_graph_bench,
+                                 config, final, params, cfg)
         if configs.CONFIGS[config].viz_export:
             timed(f"export {config}", phase_export, dev, final, config)
         if config == KERNELS["brute_density"][2]:
             measured[config]["brute_density"]["final_ms"] = timed(
                 f"final {config}", phase_brute_final, dev, final, config)
-        del final
+        del final, params
     for name in scene_paths.PATHS:
-        counts[name], final, params = timed(f"scene {name}", phase_scene,
-                                            dev, name)
+        counts[name], scene = timed(f"scene {name}", phase_scene, dev, name)
+        graph_ms[name] = timed(f"graph {name}", phase_graph_scene, dev, name,
+                               scene)
         if name == "fountain_50k":
-            timed("impulses", phase_impulses, dev, final, params)
-        del final
+            timed("impulses", phase_impulses, dev, scene.state, scene.params)
+        del scene
     counts["reel"], reel_scene = timed("reel", phase_reel, dev)
     timed("looks", phase_looks, dev, reel_scene)
     reel_syncs(reel_scene)
@@ -2306,6 +2508,8 @@ def main() -> int:
                 raise AssertionError(
                     f"{k['name']}: {at['ms']} ms is less than its bound of "
                     f"{at['bound_ms']} ms: the bound's count is wrong")
+    log(f"graph: ms/substep medians, eager and graph in turns, by path "
+        f"{json.dumps(graph_ms)}")
     log(f"all phases passed in {time.perf_counter() - t_start!r} s, the "
         f"build included")
     print(json.dumps(record), flush=True)

@@ -13,7 +13,9 @@ then times ``FRAMES`` more such frames with the host clock around work
 that ends in ``torch.cuda.synchronize()``, and reports the median frame as
 particle-steps per second: fluid rows x substeps / seconds.  The host
 clock spreads from frame to frame, so the card's name and power limit, every
-frame's ms per substep and their min and max go to stderr.  A configuration
+frame's ms per substep and their min and max go to stderr, with the
+runner (on the card, ``run_substeps``'s captured program, captured in the
+warm-up frame, ``engine/graph.py``) and its count of captures.  A configuration
 with ``viz_export`` (``export_4m``) then exports the final state's frames,
 as ``bench.py:147-169`` does: four 960x540 PNGs, palette 1 driven by height,
 speed, pressure and density, written to ``bench_frames/<config>_<drive>.png``
@@ -38,6 +40,7 @@ import torch
 from sph_tpu_torch.app import configs
 from sph_tpu_torch.core.device import card_line, resolve
 from sph_tpu_torch.core.state import ParticleState
+from sph_tpu_torch.engine import graph
 from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
 from sph_tpu_torch.viz import palettes as PAL
 from sph_tpu_torch.viz.camera import fit_camera
@@ -121,6 +124,8 @@ def run(cfg: Union[str, configs.BenchConfig], n_substeps: int = 20,
         state, s = frame(state)
         seconds.append(s)
     ms = [1e3 * s / n_substeps for s in seconds]
+    _log(graph.describe() if cuda else "runner: the eager loop "
+         "(run_substeps_eager) on the CPU")
     _log(f"{frames} frames of {n_substeps} substeps, ms/substep: "
          f"{[round(m, 4) for m in ms]} (median "
          f"{statistics.median(ms):.4f}, min {min(ms):.4f}, max {max(ms):.4f})")

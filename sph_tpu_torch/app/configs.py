@@ -20,6 +20,7 @@ import dataclasses
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
+import torch
 
 from sph_tpu_torch.core import params as P
 from sph_tpu_torch.core import state as S
@@ -114,12 +115,19 @@ def frame_prologue(cfg: Union[str, BenchConfig], params: FluidParams,
     (``bench.py:79-88``).  For a wave configuration the reference kicks
     once per frame, dt-premultiplied (``Scene0p.cpp:1303-1307``), and a
     frame of substeps stands in for one reference frame; the other
-    configurations return the state unchanged."""
+    configurations return the state unchanged.  The wave's scalars are
+    built on the params' device here, once, so no frame copies them from
+    the host."""
     if isinstance(cfg, str):
         cfg = CONFIGS[cfg]
     if not cfg.wave_impulse:
         return lambda state: state
-    amplitude = 60.0 * float(params.dt) * n_substeps
+    dev = params.dt.device
+    amplitude, wavelength, phase = (
+        torch.full((), v, dtype=torch.float32, device=dev)
+        for v in (60.0 * float(params.dt) * n_substeps, 4.0, 0.7))
+    direction = torch.tensor((1.0, 0.0, 0.3), dtype=torch.float32,
+                             device=dev)
     return lambda state: wave_impulse(
-        state, amplitude=amplitude, wavelength=4.0, phase=0.7,
-        direction=(1.0, 0.0, 0.3))
+        state, amplitude=amplitude, wavelength=wavelength, phase=phase,
+        direction=direction)

@@ -17,6 +17,11 @@ one more window with ``torch.profiler`` (CPU and CUDA activity).
 ``--slab`` runs a bench configuration's frames on the slab engine
 (``parallel/slabs.py``) as one NCCL rank, the slab path's own cost with no
 halo and no migration.
+The frames of the cell engine and of the all-pairs kernels go through
+``run_substeps``'s captured program (``engine/graph.py``), captured in the
+first warm-up frame, so the profiled frame is a replay and shows the graph
+path's kernels and gaps; the slab engine runs its eager loop.  Which
+runner ran and how many graphs it captured go to stderr.
 It prints the ms per substep of each window, the device operations
 (kernels, copies, fills) per substep, the device busy time per substep
 (the union of the device intervals), the device's idle share of the median
@@ -30,6 +35,7 @@ import argparse
 import dataclasses
 import json
 import statistics
+import sys
 import tempfile
 import time
 from collections import defaultdict
@@ -37,6 +43,7 @@ from collections import defaultdict
 import torch
 
 from sph_tpu_torch.app import configs, scene_paths
+from sph_tpu_torch.engine import graph
 from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
 from sph_tpu_torch.parallel import group as G, slabs
 
@@ -164,6 +171,11 @@ def _measure(name, state, frame, tags, group, warmup_frames, substeps,
     if group is not None:       # the slab path's count exchanges
         tags["group_waits_per_substep"] = group.waits / (
             (warmup_frames + windows + 1) * substeps)
+        runner = "runner: the slab engine's eager loop"
+    else:
+        runner = graph.describe()
+        tags.update(runner="graph", graphs_captured=graph.STATS["captures"])
+    print(f"{name}: {runner}", file=sys.stderr, flush=True)
     out = {
         "config": name, **tags,
         "card": torch.cuda.get_device_name(0),

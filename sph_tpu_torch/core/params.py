@@ -19,7 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from sph_tpu_torch.core.device import resolve
+from sph_tpu_torch.core.device import constant, resolve
 
 # Shape type ids — reference SPHFluid3D.h:117-118
 SHAPE_BOX = 0
@@ -283,7 +283,7 @@ def grid_cell_coords(pos: torch.Tensor, params: FluidParams,
     local = (pos - params.box_center[None, :]) @ rot     # rows: R^T d
     gmin = grid_min(params)
     c = torch.floor((local - gmin[None, :]) / params.h).to(torch.int32)
-    hi = torch.as_tensor(dims, dtype=torch.int32, device=pos.device) - 1
+    hi = constant(tuple(int(d) - 1 for d in dims), torch.int32, pos.device)
     return torch.minimum(c.clamp_min(0), hi[None, :])
 
 

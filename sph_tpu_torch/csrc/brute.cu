@@ -151,7 +151,9 @@ __global__ void __cluster_dims__(kDensityBlocks, 1, 1)
 __launch_bounds__(32 * kDensityWarps)
 brute_density_kernel(const float* __restrict__ pos,
                      const float* __restrict__ contrib, int n,
-                     SphSweepParams p, float* __restrict__ rho_raw) {
+                     const SphSweepParams* __restrict__ prm,
+                     float* __restrict__ rho_raw) {
+  const SphSweepParams p = *prm;
   constexpr int kR = kDensityRows, kS = kDensityWarps, kC = kDensityBlocks;
   constexpr int kRows = kDensityGroup;
   constexpr int kStride = kC * kS;
@@ -363,8 +365,10 @@ brute_force_kernel(const float* __restrict__ pos,
                    const float* __restrict__ rho,
                    const float* __restrict__ pres,
                    const float* __restrict__ contrib, int n,
-                   SphSweepParams p, float* __restrict__ npos,
-                   float* __restrict__ nvel, float* __restrict__ acc) {
+                   const SphSweepParams* __restrict__ prm,
+                   float* __restrict__ npos, float* __restrict__ nvel,
+                   float* __restrict__ acc) {
+  const SphSweepParams p = *prm;
   constexpr int kR = kForceRows, kS = kForceSlices;
   constexpr int kRowsPerBlock = ForceShape::kRowsPerBlock;
   extern __shared__ float4 smem[];
@@ -561,7 +565,7 @@ brute_force_kernel(const float* __restrict__ pos,
 
 int launch_force(const float* pos, const float* vel, const float* rho,
                  const float* pres, const float* contrib, int n,
-                 const SphSweepParams& p, float* npos, float* nvel,
+                 const SphSweepParams* params, float* npos, float* nvel,
                  float* acc, cudaStream_t stream) {
   // more than 48 KB of shared memory a block has to be asked for, once
   static const cudaError_t attr = cudaFuncSetAttribute(
@@ -571,8 +575,8 @@ int launch_force(const float* pos, const float* vel, const float* rho,
   constexpr int kRowsPerBlock = ForceShape::kRowsPerBlock;
   brute_force_kernel<<<(n + kRowsPerBlock - 1) / kRowsPerBlock,
                        ForceShape::kThreads, ForceShape::kSmemBytes,
-                       stream>>>(pos, vel, rho, pres, contrib, n, p, npos,
-                                 nvel, acc);
+                       stream>>>(pos, vel, rho, pres, contrib, n, params,
+                                 npos, nvel, acc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -585,7 +589,7 @@ extern "C" int sph_brute_density(const float* pos, const float* contrib,
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int groups = (n + kDensityGroup - 1) / kDensityGroup;
     brute_density_kernel<<<kDensityBlocks * groups, 32 * kDensityWarps, 0,
-                           s>>>(pos, contrib, n, *params, rho_raw);
+                           s>>>(pos, contrib, n, params, rho_raw);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -597,6 +601,6 @@ extern "C" int sph_brute_force(const float* pos, const float* vel,
                                float* nvel, float* acc, void* stream) {
   if (n <= 0) return static_cast<int>(cudaGetLastError());
   return launch_force(
-      pos, vel, rho, pres, contrib, n, *params, npos, nvel, acc,
+      pos, vel, rho, pres, contrib, n, params, npos, nvel, acc,
       static_cast<cudaStream_t>(stream));
 }

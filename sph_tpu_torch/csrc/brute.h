@@ -4,10 +4,10 @@
 // in particle order (this engine never sorts): pos / vel / npos / nvel /
 // acc [n][3] float32; contrib / rho / pres / rho_raw [n] float32, where
 // contrib is 1 for a neighbor source and 0 otherwise.  The params are the
-// cell engine's SphSweepParams (sweeps.h); the all-pairs kernels read
-// h, h2, mass, spiky, visc_lap, poly6, mu, st, gx, gy, gz and dt, and
-// ignore the rest (rho0, gas_k, rho_floor, nx, ny, nz).  The launch goes
-// on `stream` (a cudaStream_t) and neither function synchronises or
+// cell engine's SphSweepParams (sweeps.h), in device memory as there; the
+// all-pairs kernels read h, h2, mass, spiky, visc_lap, poly6, mu, st, gx,
+// gy, gz and dt, and ignore the rest (rho0, gas_k, rho_floor).  The launch
+// goes on `stream` (a cudaStream_t) and neither function synchronises or
 // allocates.  Each returns cudaGetLastError() after its launch: 0 means
 // launched.
 #pragma once

@@ -146,19 +146,21 @@ density_kernel(const int* __restrict__ key, const float* __restrict__ pos,
                const int* __restrict__ ce, int n,
                const float* __restrict__ gpos, const int* __restrict__ gcs,
                const int* __restrict__ gce,
-               const unsigned char* __restrict__ gnear, SphSweepParams p,
+               const unsigned char* __restrict__ gnear, SphGrid grid,
+               const SphSweepParams* __restrict__ prm,
                float* __restrict__ rho, float* __restrict__ pres,
                float4* __restrict__ sa, float4* __restrict__ sb) {
+  const SphSweepParams p = *prm;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int k = key[i];
   const float xi = pos[3 * i], yi = pos[3 * i + 1], zi = pos[3 * i + 2];
   float r = 0.f, pr = 0.f;
-  if (k < p.nx * p.ny * p.nz) {
-    const int x = k % p.nx;
-    const int z = (k / p.nx) % p.nz;
-    const int y = k / (p.nx * p.nz);
-    const int x0 = max(x - 1, 0), x1 = min(x + 1, p.nx - 1);
+  if (k < grid.nx * grid.ny * grid.nz) {
+    const int x = k % grid.nx;
+    const int z = (k / grid.nx) % grid.nz;
+    const int y = k / (grid.nx * grid.nz);
+    const int x0 = max(x - 1, 0), x1 = min(x + 1, grid.nx - 1);
     float sum = 0.f;
     // the 9 ranges of one structure: sources src, ranges st / en
     auto walk = [&](const float* __restrict__ src, const int* __restrict__ st,
@@ -175,9 +177,9 @@ density_kernel(const int* __restrict__ key, const float* __restrict__ pos,
       for (int q = 0; q < 9; ++q) {
         const int yy = y + q / 3 - 1, zz = z + q % 3 - 1;
         const bool in_grid =
-            static_cast<unsigned>(yy) < static_cast<unsigned>(p.ny) &&
-            static_cast<unsigned>(zz) < static_cast<unsigned>(p.nz);
-        const int row = p.nx * (zz + p.nz * yy);
+            static_cast<unsigned>(yy) < static_cast<unsigned>(grid.ny) &&
+            static_cast<unsigned>(zz) < static_cast<unsigned>(grid.nz);
+        const int row = grid.nx * (zz + grid.nz * yy);
         first[q] = in_grid ? __ldg(st + row + x0) : 0;
         end[q] = in_grid ? __ldg(en + row + x1) : 0;
       }
@@ -252,9 +254,12 @@ force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
                   const float4* __restrict__ sb, const int* __restrict__ cs,
                   const int* __restrict__ ce, int n,
                   const int* __restrict__ gcs, const int* __restrict__ gce,
-                  int has_ghosts, SphSweepParams p, float* __restrict__ npos,
+                  int has_ghosts, SphGrid grid,
+                  const SphSweepParams* __restrict__ prm,
+                  float* __restrict__ npos,
                   float* __restrict__ nvel, float* __restrict__ acc,
                   float* __restrict__ per) {
+  const SphSweepParams p = *prm;
   // the queue: record indices, entry q of thread t at queue[q][t]
   __shared__ int queue[kQueue][kBlock];
   const int tid = threadIdx.x;
@@ -262,7 +267,7 @@ force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
       static_cast<unsigned>(__cvta_generic_to_shared(&queue[0][tid]));
   const unsigned qend = qbase + kQueue * kBlock * 4;
   const int i = blockIdx.x * blockDim.x + tid;
-  const int nc = p.nx * p.ny * p.nz;
+  const int nc = grid.nx * grid.ny * grid.nz;
   // no thread leaves before the last warp vote: a row out of range or
   // without a cell walks nothing
   const bool in = i < n;
@@ -272,11 +277,11 @@ force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
   if (in) self_a = sa[i], self_b = sb[i];
   const float xi = self_a.x, yi = self_a.y, zi = self_a.z, rhoi = self_a.w;
   const float vxi = self_b.x, vyi = self_b.y, vzi = self_b.z;
-  const int x = k % p.nx;
-  const int z = (k / p.nx) % p.nz;
-  const int y = k / (p.nx * p.nz);
-  const int x0 = max(x - 1, 0), x1 = min(x + 1, p.nx - 1);
-  const int stride_y = p.nx * p.nz;
+  const int x = k % grid.nx;
+  const int z = (k / grid.nx) % grid.nz;
+  const int y = k / (grid.nx * grid.nz);
+  const int x0 = max(x - 1, 0), x1 = min(x + 1, grid.nx - 1);
+  const int stride_y = grid.nx * grid.nz;
   const float presi = fmaxf(p.gas_k * (rhoi - p.rho0), 0.f);
   // twice the step the row takes if no force acts, s = v dt damping; the
   // queue takes what is within h of pos or within h + margin of pos + s
@@ -320,12 +325,12 @@ force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
       const int* __restrict__ en = g ? gce : ce;
       const int first = g ? n : 0;
       int dy = -1, dz = -1;
-      int row = k - x - stride_y - p.nx;
+      int row = k - x - stride_y - grid.nx;
       auto bounds = [&](int* j, int* e) {
         *j = 0, *e = 0;
         if (fluid &&
-            static_cast<unsigned>(y + dy) < static_cast<unsigned>(p.ny) &&
-            static_cast<unsigned>(z + dz) < static_cast<unsigned>(p.nz)) {
+            static_cast<unsigned>(y + dy) < static_cast<unsigned>(grid.ny) &&
+            static_cast<unsigned>(z + dz) < static_cast<unsigned>(grid.nz)) {
           *j = __ldg(st + row + x0);
           *e = __ldg(en + row + x1);
         }
@@ -335,8 +340,8 @@ force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
 #pragma unroll 3
       for (int q = 0; q < 9; ++q) {
         // the next range's bounds load while this range is walked
-        ++dz, row += p.nx;
-        if (dz > 1) dz = -1, ++dy, row += stride_y - 3 * p.nx;
+        ++dz, row += grid.nx;
+        if (dz > 1) dz = -1, ++dy, row += stride_y - 3 * grid.nx;
         int next_j = 0, next_e = 0;
         if (q < 8) bounds(&next_j, &next_e);
         for (;;) {
@@ -510,16 +515,16 @@ extern "C" int sph_density(const int* key, const float* pos,
                            const int* cell_end, int n, const float* ghost_pos,
                            const int* ghost_start, const int* ghost_end,
                            const unsigned char* ghost_near,
-                           const SphSweepParams* params, float* rho,
-                           float* pres, float* src, int src_rows,
-                           void* stream) {
+                           const SphSweepParams* params, int nx, int ny,
+                           int nz, float* rho, float* pres, float* src,
+                           int src_rows, void* stream) {
   if (n > 0) {
     const bool pack = vel != nullptr && src != nullptr;
     float4* sa = pack ? reinterpret_cast<float4*>(src) : nullptr;
     density_kernel<<<grid_for(n), kBlock, 0,
                      static_cast<cudaStream_t>(stream)>>>(
         key, pos, vel, cell_start, cell_end, n, ghost_pos, ghost_start,
-        ghost_end, ghost_near, *params, rho, pres, sa,
+        ghost_end, ghost_near, SphGrid{nx, ny, nz}, params, rho, pres, sa,
         pack ? sa + src_rows : nullptr);
   }
   return static_cast<int>(cudaGetLastError());
@@ -529,14 +534,16 @@ extern "C" int sph_force_xsph(const int* key, const float* src, int src_rows,
                               const int* cell_start, const int* cell_end,
                               int n, const int* ghost_start,
                               const int* ghost_end, int has_ghosts,
-                              const SphSweepParams* params, float* npos,
-                              float* nvel, float* acc, void* stream) {
+                              const SphSweepParams* params, int nx,
+                              int ny, int nz, float* npos, float* nvel,
+                              float* acc, void* stream) {
   if (n > 0) {
     const float4* sa = reinterpret_cast<const float4*>(src);
     force_xsph_kernel<false><<<grid_for(n), kBlock, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         key, sa, sa + src_rows, cell_start, cell_end, n, ghost_start,
-        ghost_end, has_ghosts, *params, npos, nvel, acc, nullptr);
+        ghost_end, has_ghosts, SphGrid{nx, ny, nz}, params, npos, nvel, acc,
+        nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -546,14 +553,16 @@ extern "C" int sph_force_xsph_emit(const int* key, const float* src,
                                    const int* cell_end, int n,
                                    const int* ghost_start,
                                    const int* ghost_end, int has_ghosts,
-                                   const SphSweepParams* params, float* per,
+                                   const SphSweepParams* params, int nx,
+                                   int ny, int nz, float* per,
                                    void* stream) {
   if (n > 0) {
     const float4* sa = reinterpret_cast<const float4*>(src);
     force_xsph_kernel<true><<<grid_for(n), kBlock, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         key, sa, sa + src_rows, cell_start, cell_end, n, ghost_start,
-        ghost_end, has_ghosts, *params, nullptr, nullptr, nullptr, per);
+        ghost_end, has_ghosts, SphGrid{nx, ny, nz}, params, nullptr, nullptr,
+        nullptr, per);
   }
   return static_cast<int>(cudaGetLastError());
 }

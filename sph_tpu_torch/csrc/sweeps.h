@@ -19,6 +19,12 @@
 // given vel and src (both may be null: then it writes none);
 // the force sweeps read all of them.
 //
+// The sweep constants, params, are device memory too: 15 float32 words in
+// the order of SphSweepParams (sweeps.make_pvec writes them on the device),
+// which the kernels load at their start; the grid dims go by value.  So a
+// launch captured into a CUDA graph reads the block's values when the graph
+// replays, not when it was captured.
+//
 // The launch goes on `stream` (a cudaStream_t) and no function synchronises
 // or allocates.  Each returns cudaGetLastError() after its launch: 0 means
 // launched.
@@ -28,8 +34,8 @@
 extern "C" {
 #endif
 
-// Counterpart of the JAX package's pvec (pallas_sweeps.py:104-115) plus
-// the grid dims; passed to the kernels by value.
+// Counterpart of the JAX package's pvec (pallas_sweeps.py:104-115): the
+// layout of the device block `params`.
 typedef struct {
   float h, h2, mass;
   float spiky;      // -45 / (pi h^6)
@@ -39,21 +45,27 @@ typedef struct {
   float gx, gy, gz;
   float dt, rho0, gas_k;
   float rho_floor;  // 0.5 rho0
-  int nx, ny, nz;
 } SphSweepParams;
+
+// The grid dims (nx, ny, nz), passed to the kernels by value.
+typedef struct {
+  int nx, ny, nz;
+} SphGrid;
 
 int sph_density(const int* key, const float* pos, const float* vel,
                 const int* cell_start, const int* cell_end, int n,
                 const float* ghost_pos, const int* ghost_start,
                 const int* ghost_end, const unsigned char* ghost_near,
-                const SphSweepParams* params, float* rho, float* pres,
-                float* src, int src_rows, void* stream);
+                const SphSweepParams* params, int nx, int ny, int nz,
+                float* rho, float* pres, float* src, int src_rows,
+                void* stream);
 
 int sph_force_xsph(const int* key, const float* src, int src_rows,
                    const int* cell_start, const int* cell_end, int n,
                    const int* ghost_start, const int* ghost_end,
-                   int has_ghosts, const SphSweepParams* params, float* npos,
-                   float* nvel, float* acc, void* stream);
+                   int has_ghosts, const SphSweepParams* params, int nx,
+                   int ny, int nz, float* npos, float* nvel, float* acc,
+                   void* stream);
 
 // The same sweep, its outputs packed with rho into per [n][16] float32:
 // cols 0:3 npos, 3:6 nvel, 6:9 acc, 9 rho (the input), 10:16 zero.
@@ -61,7 +73,7 @@ int sph_force_xsph_emit(const int* key, const float* src, int src_rows,
                         const int* cell_start, const int* cell_end, int n,
                         const int* ghost_start, const int* ghost_end,
                         int has_ghosts, const SphSweepParams* params,
-                        float* per, void* stream);
+                        int nx, int ny, int nz, float* per, void* stream);
 
 #ifdef __cplusplus
 }

@@ -32,16 +32,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 
-class SweepParamsC(ctypes.Structure):
-    """ctypes mirror of ``SphSweepParams`` in ``csrc/sweeps.h`` (the
-    all-pairs kernels of ``csrc/brute.cu`` take it too and ignore the grid
-    dims)."""
-    _fields_ = [(name, ctypes.c_float) for name in (
-        "h", "h2", "mass", "spiky", "visc_lap", "poly6", "mu", "st",
-        "gx", "gy", "gz", "dt", "rho0", "gas_k", "rho_floor")] + [
-        (name, ctypes.c_int) for name in ("nx", "ny", "nz")]
-
-
 CELL_MAX_WIDE, CELL_MAX_NARROW = 4, 12
 
 
@@ -117,20 +107,23 @@ def library() -> ctypes.CDLL:
     C signatures declared."""
     lib = ctypes.CDLL(library_path())
     p, i = ctypes.c_void_p, ctypes.c_int
-    prm = ctypes.POINTER(SweepParamsC)
     lib.sph_cell_table.argtypes = [p, p, i, i, ctypes.POINTER(CellColumnsC),
                                    p, p]
     lib.sph_cell_table.restype = i
-    lib.sph_density.argtypes = [p, p, p, p, p, i, p, p, p, p, prm, p, p, p, i,
-                                p]
+    # the sweep params are a device pointer (csrc/sweeps.h), the grid dims
+    # three ints
+    lib.sph_density.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i, i, i, p,
+                                p, p, i, p]
     lib.sph_density.restype = i
-    lib.sph_force_xsph.argtypes = [p, p, i, p, p, i, p, p, i, prm, p, p, p, p]
+    lib.sph_force_xsph.argtypes = [p, p, i, p, p, i, p, p, i, p, i, i, i, p,
+                                   p, p, p]
     lib.sph_force_xsph.restype = i
-    lib.sph_force_xsph_emit.argtypes = [p, p, i, p, p, i, p, p, i, prm, p, p]
+    lib.sph_force_xsph_emit.argtypes = [p, p, i, p, p, i, p, p, i, p, i, i,
+                                        i, p, p]
     lib.sph_force_xsph_emit.restype = i
-    lib.sph_brute_density.argtypes = [p, p, i, prm, p, p]
+    lib.sph_brute_density.argtypes = [p, p, i, p, p, p]
     lib.sph_brute_density.restype = i
-    lib.sph_brute_force.argtypes = [p, p, p, p, p, i, prm, p, p, p, p]
+    lib.sph_brute_force.argtypes = [p, p, p, p, p, i, p, p, p, p, p]
     lib.sph_brute_force.restype = i
     lib.sph_smoke.argtypes = [p, p, i, p]
     lib.sph_smoke.restype = i

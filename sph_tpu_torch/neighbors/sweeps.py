@@ -26,12 +26,13 @@ sources have rho0, P = 0 and v = 0 (``physics/brute_force.py``).
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from sph_tpu_torch.core.device import filled
 from sph_tpu_torch.core.params import FluidParams, SimConfig
 from sph_tpu_torch.core.state import ParticleState
 from sph_tpu_torch.native import build
@@ -65,25 +66,20 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-@dataclasses.dataclass(frozen=True)
+# The sweep constants in the order of ``SphSweepParams`` (csrc/sweeps.h)
+CONST_NAMES = ("h", "h2", "mass", "spiky", "visc_lap", "poly6", "mu", "st",
+               "gx", "gy", "gz", "dt", "rho0", "gas_k", "rho_floor")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class SweepParams:
-    """The sweeps' constants on the host (the JAX kernels' ``pvec``,
-    ``pallas_sweeps.py:104-115``), plus the grid dims."""
-    h: float
-    h2: float
-    mass: float
-    spiky: float
-    visc_lap: float
-    poly6: float
-    mu: float
-    st: float
-    gx: float
-    gy: float
-    gz: float
-    dt: float
-    rho0: float
-    gas_k: float
-    rho_floor: float
+    """The sweeps' constants (the JAX kernels' ``pvec``,
+    ``pallas_sweeps.py:104-115``) as a float32 block on the params' device,
+    where the kernels read them (``csrc/sweeps.h``), and the grid dims on
+    the host.  ``pv.h``, ``pv.dt``, ... (``CONST_NAMES``) are the constants
+    as host floats, for the plain versions: the block comes to the host at
+    the first such read, which on a card waits for the device."""
+    consts: torch.Tensor    # [15] float32, CONST_NAMES in order
     nx: int
     ny: int
     nz: int
@@ -92,23 +88,57 @@ class SweepParams:
     def num_cells(self) -> int:
         return self.nx * self.ny * self.nz
 
+    @functools.cached_property
+    def host(self) -> Tuple[float, ...]:
+        return tuple(self.consts.tolist())
+
+    def __getattr__(self, name):
+        if name not in CONST_NAMES:
+            raise AttributeError(name)
+        return self.host[CONST_NAMES.index(name)]
+
+    def __eq__(self, other) -> bool:
+        return (isinstance(other, SweepParams)
+                and (self.nx, self.ny, self.nz) == (other.nx, other.ny,
+                                                    other.nz)
+                and torch.equal(self.consts, other.consts))
+
+    def replace(self, **consts) -> "SweepParams":
+        """These params with the constants named in ``consts`` (host
+        floats, written on the device) set anew."""
+        out = self.consts.clone()
+        for name, v in consts.items():
+            out[CONST_NAMES.index(name)] = v
+        return SweepParams(out, self.nx, self.ny, self.nz)
+
 
 def make_pvec(params: FluidParams, dt, dims: Tuple[int, int, int]
               ) -> SweepParams:
-    """Derive the sweep constants in float32 on the params' device and
-    bring them to the host in one copy."""
+    """Derive the sweep constants in float32 on the params' device.  Nothing
+    here waits for the device: a ``dt`` that is no tensor is written by a
+    fill, not copied from the host."""
     h = params.h
-    vec = torch.stack([
+    if not isinstance(dt, torch.Tensor):
+        dt = filled(dt, h.device)
+    consts = torch.stack([
         h, h * h, params.mass,
         -45.0 / (_PI * h**6), 45.0 / (_PI * h**6),
         315.0 / (64.0 * _PI * h**9),
         params.viscosity, params.surface_tension,
         params.gravity[0], params.gravity[1], params.gravity[2],
-        torch.as_tensor(dt, dtype=torch.float32, device=h.device),
+        dt.to(torch.float32),
         params.rest_density, params.gas_constant,
         C.DENSITY_FLOOR_FRAC * params.rest_density,
-    ]).to(torch.float32).tolist()
-    return SweepParams(*vec, *(int(d) for d in dims))
+    ]).to(torch.float32)
+    return SweepParams(consts, *(int(d) for d in dims))
+
+
+def _mass_over(rho: torch.Tensor, pv: SweepParams) -> torch.Tensor:
+    """mass / max(rho, 1e-12), a true division as the kernel's (float /
+    tensor would multiply by the reciprocal), with the mass read from the
+    device block."""
+    mass = pv.consts[CONST_NAMES.index("mass")]
+    return torch.div(mass.expand_as(rho), torch.clamp_min(rho, 1e-12))
 
 
 # ---------------------------------------------------------------------------
@@ -199,10 +229,7 @@ def pack_sources(pos, vel, rho, pv: SweepParams,
     src[0, :n, :3] = pos
     src[0, :n, 3] = rho
     src[1, :n, :3] = vel
-    # a true division, as the kernel's (float / tensor would multiply by
-    # the reciprocal)
-    src[1, :n, 3] = torch.div(torch.full_like(rho, pv.mass),
-                              torch.clamp_min(rho, 1e-12))
+    src[1, :n, 3] = _mass_over(rho, pv)
     return src
 
 
@@ -213,8 +240,7 @@ def set_source_density(src: torch.Tensor, rows: torch.Tensor,
     halo rows take their owner's density after the density sweep
     (``parallel/slabs.py``)."""
     src[0, rows, 3] = rho
-    src[1, rows, 3] = torch.div(torch.full_like(rho, pv.mass),
-                                torch.clamp_min(rho, 1e-12))
+    src[1, rows, 3] = _mass_over(rho, pv)
 
 
 def _norm(v):
@@ -333,6 +359,7 @@ def _check_rows(key, pos, cell_start, cell_end, pv: SweepParams,
     if n >= 2**31 // 3:
         raise ValueError(f"{n} rows overflow the kernels' int32 indexing")
     check = build.check_tensor
+    check("sweep params", pv.consts, torch.float32, (len(CONST_NAMES),), dev)
     check("key", key, torch.int32, (n,), dev)
     check("pos", pos, torch.float32, (n, 3), dev)
     check("cell_start", cell_start, torch.int32, (pv.num_cells,), dev)
@@ -367,9 +394,10 @@ def _density_ghost_args(ghosts: Optional[GhostRows]):
             ghosts.ghost_end.data_ptr(), ghosts.near.data_ptr())
 
 
-def c_params(pv: SweepParams) -> build.SweepParamsC:
-    """The params as the C struct the kernels take by pointer."""
-    return build.SweepParamsC(*dataclasses.astuple(pv))
+def c_params(pv: SweepParams):
+    """The kernels' params arguments: the device block's address and the
+    grid dims."""
+    return pv.consts.data_ptr(), pv.nx, pv.ny, pv.nz
 
 
 def _launch_density(key, pos, vel, cell_start, cell_end, pv: SweepParams,
@@ -378,12 +406,11 @@ def _launch_density(key, pos, vel, cell_start, cell_end, pv: SweepParams,
     n = key.shape[0]
     rho = torch.empty(n, dtype=torch.float32, device=key.device)
     pres = torch.empty_like(rho)
-    prm = c_params(pv)
     err = lib.sph_density(
         key.data_ptr(), pos.data_ptr(),
         None if vel is None else vel.data_ptr(), cell_start.data_ptr(),
         cell_end.data_ptr(), n, *_density_ghost_args(ghosts),
-        ctypes.byref(prm), rho.data_ptr(), pres.data_ptr(),
+        *c_params(pv), rho.data_ptr(), pres.data_ptr(),
         None if src is None else src.data_ptr(),
         0 if src is None else src.shape[1],
         torch.cuda.current_stream(key.device).cuda_stream)
@@ -449,11 +476,10 @@ def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
     npos = torch.empty_like(pos)
     nvel = torch.empty_like(vel)
     acc = torch.empty_like(pos)
-    prm = c_params(pv)
     err = lib.sph_force_xsph(
         key.data_ptr(), src.data_ptr(), src.shape[1], cell_start.data_ptr(),
         cell_end.data_ptr(), key.shape[0], *_ghost_args(ghosts),
-        ctypes.byref(prm), npos.data_ptr(), nvel.data_ptr(), acc.data_ptr(),
+        *c_params(pv), npos.data_ptr(), nvel.data_ptr(), acc.data_ptr(),
         torch.cuda.current_stream(key.device).cuda_stream)
     build.launched(LAUNCHES, "force_xsph", err)
     return npos, nvel, acc
@@ -472,10 +498,9 @@ def force_xsph_emit(key, pos, vel, rho, cell_start, cell_end,
     lib = build.library()
     n = key.shape[0]
     per = torch.empty(n, EMIT_COLS, dtype=torch.float32, device=key.device)
-    prm = c_params(pv)
     err = lib.sph_force_xsph_emit(
         key.data_ptr(), src.data_ptr(), src.shape[1], cell_start.data_ptr(),
-        cell_end.data_ptr(), n, *_ghost_args(ghosts), ctypes.byref(prm),
+        cell_end.data_ptr(), n, *_ghost_args(ghosts), *c_params(pv),
         per.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
     build.launched(LAUNCHES, "force_xsph_emit", err)
     return per

@@ -19,7 +19,6 @@ self pair is excluded by row index, as in the TPU kernel.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -27,7 +26,8 @@ import torch
 from sph_tpu_torch.core.params import FluidParams
 from sph_tpu_torch.core.state import ParticleState
 from sph_tpu_torch.native import build
-from sph_tpu_torch.neighbors.sweeps import SweepParams, c_params, make_pvec
+from sph_tpu_torch.neighbors.sweeps import (CONST_NAMES, SweepParams,
+                                           make_pvec)
 from sph_tpu_torch.physics import common as C
 
 # i rows per chunk of the plain versions: each chunk builds [rows, n]
@@ -133,7 +133,7 @@ def force_plain(pos, vel, rho, pres, contrib, pv: SweepParams):
 # wrappers: plain version on CPU tensors, the CUDA kernel on CUDA tensors
 # ---------------------------------------------------------------------------
 
-def _check_rows(pos, contrib, **more):
+def _check_rows(pos, contrib, pv: SweepParams, **more):
     dev = pos.device
     if dev.type != "cuda":
         raise ValueError(f"the all-pairs kernels take CUDA or CPU tensors, "
@@ -141,6 +141,8 @@ def _check_rows(pos, contrib, **more):
     n = pos.shape[0]
     if n >= 2**31 // 3:
         raise ValueError(f"{n} rows overflow the kernels' int32 indexing")
+    build.check_tensor("sweep params", pv.consts, torch.float32,
+                       (len(CONST_NAMES),), dev)
     build.check_tensor("pos", pos, torch.float32, (n, 3), dev)
     build.check_tensor("contrib", contrib, torch.float32, (n,), dev)
     for name, (t, shape) in more.items():
@@ -152,13 +154,12 @@ def density_raw(pos, contrib, pv: SweepParams):
     source)."""
     if pos.device.type == "cpu":
         return density_raw_plain(pos, contrib, pv)
-    _check_rows(pos, contrib)
+    _check_rows(pos, contrib, pv)
     lib = build.library()
     n = pos.shape[0]
     rho_raw = torch.empty(n, dtype=torch.float32, device=pos.device)
-    prm = c_params(pv)
     err = lib.sph_brute_density(
-        pos.data_ptr(), contrib.data_ptr(), n, ctypes.byref(prm),
+        pos.data_ptr(), contrib.data_ptr(), n, pv.consts.data_ptr(),
         rho_raw.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream)
     build.launched(LAUNCHES, "brute_density", err)
     return rho_raw
@@ -170,14 +171,13 @@ def force(pos, vel, rho, pres, contrib, pv: SweepParams):
     if pos.device.type == "cpu":
         return force_plain(pos, vel, rho, pres, contrib, pv)
     n = pos.shape[0]
-    _check_rows(pos, contrib, vel=(vel, (n, 3)), rho=(rho, (n,)),
+    _check_rows(pos, contrib, pv, vel=(vel, (n, 3)), rho=(rho, (n,)),
                 pres=(pres, (n,)))
     lib = build.library()
     npos, nvel, acc = (torch.empty_like(pos) for _ in range(3))
-    prm = c_params(pv)
     err = lib.sph_brute_force(
         pos.data_ptr(), vel.data_ptr(), rho.data_ptr(), pres.data_ptr(),
-        contrib.data_ptr(), n, ctypes.byref(prm), npos.data_ptr(),
+        contrib.data_ptr(), n, pv.consts.data_ptr(), npos.data_ptr(),
         nvel.data_ptr(), acc.data_ptr(),
         torch.cuda.current_stream(pos.device).cuda_stream)
     build.launched(LAUNCHES, "brute_force", err)
@@ -189,9 +189,8 @@ def force(pos, vel, rho, pres, contrib, pv: SweepParams):
 # ---------------------------------------------------------------------------
 
 def prepare(params: FluidParams, dt) -> SweepParams:
-    """The kernels' constants (the grid dims go unread).  Deriving them
-    brings 15 scalars from the device to the host, so
-    ``engine.run_substeps`` does it once, before its loop."""
+    """The kernels' constants (the grid dims go unread), derived on the
+    device; ``engine.run_substeps`` does it once, before its loop."""
     return make_pvec(params, dt, (0, 0, 0))
 
 
@@ -200,7 +199,7 @@ def substep(state: ParticleState, params: FluidParams, dt,
     """One all-pairs substep through the kernels, ``brute_pallas.substep``
     (``:244-295``) line for line.  Rows stay in place: no sort.  ``pv`` is
     :func:`prepare`'s result when the caller has it; a caller without one
-    has it derived here, which waits for the device."""
+    has it derived here."""
     if pv is None:
         pv = prepare(params, dt)
     contrib = state.contrib_mask(params.ghost_face_active)

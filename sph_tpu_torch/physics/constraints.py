@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from sph_tpu_torch.core import params as P
+from sph_tpu_torch.core.device import constant
 from sph_tpu_torch.core.params import FluidParams, rotation_matrix
 from sph_tpu_torch.core.state import ParticleState
 
@@ -41,8 +42,8 @@ def _safe_unit(v: torch.Tensor) -> torch.Tensor:
 
 
 def _vec(values, like: torch.Tensor) -> torch.Tensor:
-    """A float32 constant on the device of ``like``."""
-    return torch.tensor(values, dtype=torch.float32, device=like.device)
+    """A float32 constant on the device of ``like``, built once there."""
+    return constant(tuple(values), torch.float32, like.device)
 
 
 def _clip(x, lo, hi):
@@ -166,13 +167,14 @@ _TREFOIL_BASE = np.stack([
     0.35 * (-np.sin(3.0 * _TREFOIL_T)),
     np.cos(_TREFOIL_T) - 2.0 * np.cos(2.0 * _TREFOIL_T),
 ], axis=-1).astype(np.float32)  # [48,3] unit-scale knot samples
+_TREFOIL_ROWS = tuple(map(tuple, _TREFOIL_BASE.tolist()))
 
 
 def _project_trefoil(p, half, aux):
     """Nearest of 48 knot samples, then the tube around it.  Builds a
     [N, 48, 3] temporary: fine at scene sizes, not at millions of rows."""
     S, r = half[0], half[1]
-    curve = S * torch.as_tensor(_TREFOIL_BASE, device=p.device)   # [48,3]
+    curve = S * _vec(_TREFOIL_ROWS, p)                          # [48,3]
     d2 = torch.sum((p[:, None, :] - curve[None, :, :]) ** 2, dim=-1)
     best = curve[torch.argmin(d2, dim=-1)]          # first minimum [N,3]
     d = p - best

@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from sph_tpu_torch.core.device import constant, filled
 from sph_tpu_torch.core.params import (FluidParams, effective_half,
                                        rotation_matrix)
 from sph_tpu_torch.core.state import ParticleState
@@ -29,7 +30,16 @@ from sph_tpu_torch.viz import palettes
 
 
 def _f32(v, dev) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=dev)
+    """``v`` as float32 on ``dev``: a tensor there is used as it is, host
+    numbers are written there by fills (``core.device.filled``)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=dev, dtype=torch.float32)
+    return filled(v, dev)
+
+
+def _fixed(v, dev) -> torch.Tensor:
+    """A fixed float32 constant on ``dev``, built once there."""
+    return constant(v, torch.float32, dev)
 
 
 def _live(state: ParticleState) -> torch.Tensor:
@@ -52,7 +62,7 @@ def wave_impulse(state: ParticleState, amplitude, wavelength, phase,
     d = _f32(direction, dev)
     dlen = torch.sqrt(torch.sum(d * d))
     nd = torch.where(dlen > 1e-6, d / torch.clamp_min(dlen, 1e-12),
-                     _f32([0.0, 1.0, 0.0], dev))
+                     _fixed((0.0, 1.0, 0.0), dev))
     k = 2.0 * math.pi / torch.clamp_min(wavelength, 1e-6)
     theta = k * (state.pos @ nd) + phase
     kick = amplitude * torch.sin(theta)
@@ -117,7 +127,7 @@ _CURL_H = 0.35
 def curl_noise(q: torch.Tensor) -> torch.Tensor:
     """curl of three decorrelated value-noise potentials (central diff)."""
     dev = q.device
-    p2_off, p3_off = _f32(_P2_OFF, dev), _f32(_P3_OFF, dev)
+    p2_off, p3_off = _fixed(_P2_OFF, dev), _fixed(_P3_OFF, dev)
 
     def p1(x):
         return _vnoise(x)
@@ -128,9 +138,9 @@ def curl_noise(q: torch.Tensor) -> torch.Tensor:
     def p3(x):
         return _vnoise(x + p3_off)
 
-    ex = _f32([_CURL_H, 0.0, 0.0], dev)
-    ey = _f32([0.0, _CURL_H, 0.0], dev)
-    ez = _f32([0.0, 0.0, _CURL_H], dev)
+    ex = _fixed((_CURL_H, 0.0, 0.0), dev)
+    ey = _fixed((0.0, _CURL_H, 0.0), dev)
+    ez = _fixed((0.0, 0.0, _CURL_H), dev)
     d_p3_dy = p3(q + ey) - p3(q - ey)
     d_p2_dz = p2(q + ez) - p2(q - ez)
     d_p1_dz = p1(q + ez) - p1(q - ez)
@@ -146,7 +156,7 @@ def curl_flow(state: ParticleState, kick, scale, time) -> ParticleState:
     """Divergence-free drift; direction from curl noise, magnitude soft-capped."""
     dev = state.pos.device
     scale = torch.clamp_min(_f32(scale, dev), 1e-3)
-    zero = _f32(0.0, dev)
+    zero = _fixed(0.0, dev)
     q = state.pos * scale + torch.stack([zero, zero, _f32(time, dev)])
     curl = curl_noise(q)
     m = torch.sqrt(torch.sum(curl * curl, dim=-1))

@@ -24,6 +24,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from sph_tpu_torch.core.device import filled
 from sph_tpu_torch.core.params import FluidParams, effective_half_np
 from sph_tpu_torch.core.state import ParticleState
 from sph_tpu_torch.physics import impulses as I
@@ -112,9 +113,8 @@ def drive_audio_reaction(
         gz = g * math.sin(tilt) * math.sin(p.gravity_spin_phase)
     else:
         gx, gz = 0.0, 0.0
-    params = params.replace(gravity=torch.as_tensor(
-        np.asarray([gx, s.gravity_y, gz], np.float32),
-        device=params.gravity.device))
+    params = params.replace(gravity=filled(
+        np.asarray([gx, s.gravity_y, gz], np.float32), params.gravity.device))
 
     # attractor orb: constant pull + bass-pulse kick
     if s.attractor_on:

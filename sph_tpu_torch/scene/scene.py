@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from sph_tpu_torch.core import state as S
-from sph_tpu_torch.core.device import resolve
+from sph_tpu_torch.core.device import filled, resolve
 from sph_tpu_torch.core.params import (FluidParams, SimConfig,
                                        compute_grid_dims)
 from sph_tpu_torch.engine import step as E
@@ -217,8 +217,8 @@ class Scene:
         state, params, self.phases, self.live = R.drive_audio_reaction(
             state, params, s, self.phases, bass, mid, treble, frame_dt,
             stencil_targets=self.stencil_targets)
-        params = params.replace(fountain_jet_speed=torch.tensor(
-            self.live.fountain_jet, dtype=torch.float32, device=self.device))
+        params = params.replace(fountain_jet_speed=filled(
+            self.live.fountain_jet, self.device))
 
         if max_substeps is None:
             max_substeps = (MAX_SUBSTEPS_SLOW_FRAME if frame_dt > 0.033
@@ -226,8 +226,7 @@ class Scene:
         n_sub, self.dt_accumulator = E.substeps_for_frame(
             frame_dt, s.time_step, max_substeps, self.dt_accumulator)
         if n_sub > 0:
-            dt = torch.tensor(s.time_step, dtype=torch.float32,
-                              device=self.device)
+            dt = filled(s.time_step, self.device)
             state, self.buffers = E.run_substeps(
                 state, params, self.buffers, dt, n_sub, self.config)
 

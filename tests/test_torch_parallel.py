@@ -277,7 +277,7 @@ def test_set_source_density_is_pack_sources():
     n = 64
     pos, vel = torch.rand(n, 3, generator=g), torch.rand(n, 3, generator=g)
     rho = 900 + 200 * torch.rand(n, generator=g)
-    pv = sweeps.SweepParams(*([0.5] * 15), 4, 4, 4)
+    pv = sweeps.SweepParams(torch.full((15,), 0.5), 4, 4, 4)
     src = sweeps.pack_sources(pos, vel, torch.zeros(n), pv)
     rows = torch.arange(0, n, 3)
     sweeps.set_source_density(src, rows, rho[rows], pv)

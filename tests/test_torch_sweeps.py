@@ -578,7 +578,7 @@ def blocking_inputs(name, device="cpu", crowd=CROWD_CPU):
         # pushes some rows further in it than the kernel's queue margin
         u = np.where(np.random.default_rng(6).random(state.n) < 0.2, 50 * u,
                      u).astype(np.float32)
-        pv = dataclasses.replace(pv, dt=float(np.float32(MOVER_DT)))
+        pv = pv.replace(dt=float(np.float32(MOVER_DT)))
     rho = torch.where(key < pv.num_cells,
                       torch.as_tensor(1000.0 * (1.0 + 0.01 * u),
                                       device=key.device),
@@ -670,7 +670,7 @@ def test_force_xsph_plain_matches_all_pairs_on_blocking_fixtures(name):
 def light(pv):
     """The sweep params with 0.4 of the mass: a row with nothing in reach
     but itself (962 at the derived mass) then falls below the floor."""
-    return dataclasses.replace(pv, mass=float(np.float32(0.4 * pv.mass)))
+    return pv.replace(mass=float(np.float32(0.4 * pv.mass)))
 
 
 @pytest.mark.parametrize("name", BLOCKING)
