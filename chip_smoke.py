@@ -111,6 +111,18 @@ prints no result line):
              state as the reel's is, and timed; then the synchronising CUDA
              calls of one more reel frame (update, render, PNG), counted by
              source line (none of the update's may come once a substep);
+6g. gallery — ``app.gallery.main([<dir>])`` with no device argument: the
+             doc gallery's five looks at their own size (3,000 asked rows,
+             2,000 for the river; 30, 30, 30, 40 and 45 frames of 1/60 s;
+             engine ``binned``, which is the cell engine), five 480x270
+             PNGs read back and not uniform, #1-#3 launched once for each
+             substep of each look's settle, at most one capture for each
+             substep count, every fluid row finite and inside its container
+             (the torus; the river's box and sink), each still against the
+             CPU frame of its look's final state as the reel's last frame
+             is (the water look traced by pass where they part), and each
+             look's seconds (settle by CUDA events, render and PNG on the
+             host clock);
 7. micro   — ``app.microbench.main`` and ``app.proto_expand.main`` (the
              entry points of the micro-kernels) with their launch counts,
              the launch floor (a one-element torch op timed likewise),
@@ -141,7 +153,8 @@ Each phase logs its seconds.
 
 The last lines are the kernels' JSON record (each kernel with the
 configuration or path whose launches and times it reports, and its
-launches in the reel under ``reel_launches``, and #1-#3 their launches
+launches in the reel under ``reel_launches`` and in the gallery under
+``gallery_launches``, and #1-#3 their launches
 in phase ``parallel`` under ``parallel_launches``: on the one rank of (a)
 and on each rank of (b);
 ``cell_table_kernel`` with the times and the bound of the launch the substep
@@ -1568,7 +1581,6 @@ def phase_scene(dev, name):
     import torch
     from sph_tpu_torch.app import scene_paths
     from sph_tpu_torch.core.device import card_line
-    from sph_tpu_torch.core.params import rotation_matrix
     from sph_tpu_torch.engine.step import scene_stages
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1650,22 +1662,7 @@ def phase_scene(dev, name):
     elif recycled:
         raise AssertionError(f"{name}: {recycled} rows respawned without "
                              f"an emitter")
-    if cfg.river_mode:
-        # stream_emit is the last stage: the box, and no row left below
-        # the sink or past it
-        local = ((pos - params.box_center)
-                 @ rotation_matrix(params.box_euler_deg))
-        if not bool((local.abs() <= params.box_half + 1e-4).all()):
-            raise AssertionError(f"{name}: a fluid particle left the box")
-        if not (bool((pos[:, 1] >= params.river_sink_y).all())
-                and bool((pos[:, 2] <= params.river_sink_z_max).all())):
-            raise AssertionError(f"{name}: a fluid row below the sink or "
-                                 f"past it")
-    else:
-        off = container_offset(state, params)
-        if not off <= 1e-4:
-            raise AssertionError(f"{name}: a fluid row is {off} outside the "
-                                 f"container")
+    check_contained(name, state, params, cfg.river_mode)
     timed_sub = total - FRAME_SUBSTEPS
     log(f"scene {name}: {wall / timed_sub * 1e3!r} ms/substep (host clock "
         f"over {timed_sub} substeps and their frames' reactions, after a "
@@ -1681,6 +1678,29 @@ def phase_scene(dev, name):
     check_density(name, rho, REF_RHO[name])
     check_scene_kernels(f"{name} final", state, params, cfg, dt)
     return counts, scene
+
+
+def check_contained(name, state, params, river) -> None:
+    """Every fluid row inside its container; in river mode, where
+    stream_emit is the last stage, inside the box and no row left below
+    the sink or past it."""
+    from sph_tpu_torch.core.params import rotation_matrix
+
+    if river:
+        pos = state.pos[state.fluid_mask()]
+        local = ((pos - params.box_center)
+                 @ rotation_matrix(params.box_euler_deg))
+        if not bool((local.abs() <= params.box_half + 1e-4).all()):
+            raise AssertionError(f"{name}: a fluid particle left the box")
+        if not (bool((pos[:, 1] >= params.river_sink_y).all())
+                and bool((pos[:, 2] <= params.river_sink_z_max).all())):
+            raise AssertionError(f"{name}: a fluid row below the sink or "
+                                 f"past it")
+    else:
+        off = container_offset(state, params)
+        if not off <= 1e-4:
+            raise AssertionError(f"{name}: a fluid row is {off} outside the "
+                                 f"container")
 
 
 def check_scene_kernels(label, state, params, cfg, dt) -> None:
@@ -1913,8 +1933,9 @@ def frames_close(label, card, host, trace=None) -> dict:
     return out
 
 
-def trace_water(scene, dev, off) -> dict:
-    """Trace the pixels ``off`` ([H, W] bool) where the card's water frame
+def trace_water(scene, dev, off, w=REEL_W, h=REEL_H,
+                label="reel last frame") -> dict:
+    """Trace the pixels ``off`` ([h, w] bool) where the card's water frame
     of ``scene`` and the CPU's differ to the pass where they part: pass 1,
     the splat, runs once on the host; the smoothing runs on the card and
     on the CPU from that splat; the composite runs on the card and on the
@@ -1924,7 +1945,7 @@ def trace_water(scene, dev, off) -> dict:
     from sph_tpu_torch.scene.settings import to_viz_params, to_water_params
     from sph_tpu_torch.viz import ssfr
 
-    s, w, h = scene.settings, REEL_W, REEL_H
+    s = scene.settings
     wp = to_water_params(s)
     vp = to_viz_params(s, anim_time=scene.phases.anim_time,
                        hue_shift_live=scene.live.hue_shift_deg,
@@ -1964,7 +1985,7 @@ def trace_water(scene, dev, off) -> dict:
            "off": int(off.sum()),
            "off_by_depth": int((off & near).sum()),
            "off_by_composite": int((off & shade).sum())}
-    log(f"reel last frame, traced by pass: the smoothed depth differs "
+    log(f"{label}, traced by pass: the smoothed depth differs "
         f"between card and CPU at {out['depth_differs']} pixels, by more "
         f"than 1e-4 at {out['depth_differs_1e-4']} (max "
         f"{out['depth_max_diff']!r}); the composite from one smoothed depth puts {out['composite_off']} "
@@ -2171,6 +2192,152 @@ def phase_looks(dev, scene):
         log(f"look {name}: {REEL_W}x{REEL_H} on the card {times!r} s (first"
             f" call, second call), on the CPU {host_s!r} s")
         frames_close(f"look {name}", img, ref)
+
+
+def phase_gallery(dev):
+    """``app.gallery.main([<dir>])`` with no device argument: the five
+    stills written at the gallery's own size and read back, the cell
+    engine's launches against the substeps of each look's settle, each
+    look's captures, its fluid rows finite and inside their container,
+    the three cell kernels held to their plain versions on its final rows
+    (``check_scene_kernels``), and its still held to the CPU frame of its
+    final state.  Returns the launches."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gallery_") as tmp:
+        return gallery_in(dev, tmp)
+
+
+def gallery_in(dev, tmp):
+    """:func:`phase_gallery` with its files in the directory ``tmp``."""
+    import contextlib
+    import io
+
+    import torch
+    from sph_tpu_torch.app import gallery
+    from sph_tpu_torch.core.device import card_line
+    from sph_tpu_torch.engine import graph
+    from sph_tpu_torch.viz import splat
+
+    # main calls settle, then shot (frame, then save_png), look by look in
+    # LOOKS' order: each wrapper appends one record a look
+    settles, renders, pngs = [], [], []
+    settle, frame, save_png = gallery.settle, gallery.frame, gallery.save_png
+
+    def timed_settle(scene, frames=30):
+        before, captures = launches(), graph.STATS["captures"]
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        subs = settle(scene, frames)
+        stop.record()
+        after = launches()
+        settles.append(dict(substeps=subs, events=(start, stop),
+                            captures=graph.STATS["captures"] - captures,
+                            launches={k: after[k] - before.get(k, 0)
+                                      for k in after}))
+        return subs
+
+    def timed_frame(scene, zoom=1.0):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = frame(scene, zoom)
+        renders.append(time.perf_counter() - t0)
+        return img
+
+    def timed_save(img, path):
+        t0 = time.perf_counter()
+        save_png(img, path)
+        pngs.append(time.perf_counter() - t0)
+
+    gallery.settle, gallery.frame, gallery.save_png = (
+        timed_settle, timed_frame, timed_save)
+    reset_launches()
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            shots = gallery.main([tmp])
+        torch.cuda.synchronize()
+    finally:
+        gallery.settle, gallery.frame, gallery.save_png = (
+            settle, frame, save_png)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    log(f"gallery: the entry point printed {printed.getvalue().split()}")
+    if [name for name, _, _ in shots] != list(gallery.LOOKS) or not (
+            len(settles) == len(renders) == len(pngs) == len(shots)):
+        raise AssertionError(f"gallery: looks {[n for n, _, _ in shots]}, "
+                             f"{len(settles)} settles, {len(renders)} "
+                             f"renders, {len(pngs)} PNGs")
+    total = 0
+    for (name, scene, path), rec, render_s, png_s in zip(
+            shots, settles, renders, pngs):
+        look, s = gallery.LOOKS[name], scene.settings
+        state, params = scene.state, scene.params
+        if state.pos.device != dev or scene.config.neighbor_impl != "cell":
+            raise AssertionError(f"gallery {name}: on {state.pos.device}, "
+                                 f"engine {scene.config.neighbor_impl}")
+        subs = rec["substeps"]
+        n_sub = sum(subs)
+        total += n_sub
+        expect = dict.fromkeys(rec["launches"], 0)
+        expect.update(cell_table=n_sub, density=n_sub, force_xsph=n_sub)
+        if len(subs) != look.frames or rec["launches"] != expect:
+            raise AssertionError(f"gallery {name}: {len(subs)} frames, "
+                                 f"launches {rec['launches']}, expected "
+                                 f"{expect}")
+        # at most one program a substep count (a look whose rows and
+        # SimConfig are an earlier look's replays that look's program): no
+        # look may capture every frame
+        if not rec["captures"] <= len(set(subs)) < look.frames:
+            raise AssertionError(f"gallery {name}: {rec['captures']} "
+                                 f"captures over substeps {subs}")
+        img = splat.read_png(path)
+        if img.shape != (gallery.H, gallery.W, 3) or not (
+                img != img[0, 0]).any():
+            raise AssertionError(f"gallery {name}: {img.shape}, or uniform")
+        fl = state.fluid_mask()
+        for f in ("pos", "vel", "density"):
+            if not bool(torch.isfinite(getattr(state, f)[fl]).all()):
+                raise AssertionError(f"gallery {name}: non-finite {f}")
+        check_contained(f"gallery {name}", state, params,
+                        scene.config.river_mode)
+        settle_s = rec["events"][0].elapsed_time(rec["events"][1]) / 1e3
+        # the final state on the CPU, shot at the look's zoom
+        cpu = scene_copy(scene, "cpu")
+        t1 = time.perf_counter()
+        host = gallery.frame(cpu, look.zoom)
+        host_s = time.perf_counter() - t1
+
+        def trace(far, scene=scene, look=look, name=name):
+            if far.any() and scene.settings.render_mode == 0:
+                zoomed = scene_copy(scene, dev)
+                zoomed.camera.distance *= look.zoom
+                trace_water(zoomed, dev, far, w=gallery.W, h=gallery.H,
+                            label=f"gallery {name}")
+        close = frames_close(f"gallery {name}", img, host, trace=trace)
+        # the three kernels on the look's final rows (after ``counts``, so
+        # these launches are not the gallery's)
+        dt = torch.tensor(s.time_step, dtype=torch.float32, device=dev)
+        check_scene_kernels(f"gallery {name} final", state, params,
+                            scene.config, dt)
+        log(f"gallery {name}: {int(fl.sum())} fluid rows ({s.particle_count}"
+            f" asked), shape {s.shape_type}, river "
+            f"{scene.config.river_mode}; settle {look.frames} frames, "
+            f"{n_sub} substeps, {settle_s!r} s (CUDA events), "
+            f"{rec['captures']} captured; render {render_s!r} s, PNG "
+            f"{png_s!r} s (host clock); the CPU's frame {host_s!r} s; "
+            f"card against CPU {close}; launches {rec['launches']}, on "
+            f"{card_line()}")
+    expect = dict.fromkeys(counts, 0)
+    expect.update(cell_table=total, density=total, force_xsph=total)
+    if counts != expect:
+        raise AssertionError(f"gallery: launches {counts}, expected {expect}")
+    log(f"gallery: {len(shots)} stills at {gallery.W}x{gallery.H}, {total} "
+        f"substeps, {sum(r['captures'] for r in settles)} captures, launches "
+        f"{counts}; {wall!r} s from main's call to its return, on "
+        f"{card_line()}")
+    return counts
 
 
 # phase "parallel": the multi-rank engines of sph_tpu_torch/parallel
@@ -2488,6 +2655,7 @@ def main() -> int:
     timed("looks", phase_looks, dev, reel_scene)
     reel_syncs(reel_scene)
     del reel_scene
+    counts["gallery"] = timed("gallery", phase_gallery, dev)
     measured["micro"], counts["micro"] = timed("micro", phase_micro, dev)
     par = timed("parallel", phase_parallel, dev)
 
@@ -2499,6 +2667,7 @@ def main() -> int:
          "replaces": replaces, "config": config,
          "launches": counts[config][name],
          "reel_launches": counts["reel"].get(name, 0),
+         "gallery_launches": counts["gallery"].get(name, 0),
          **({"parallel_launches": par[name]} if name in par else {}),
          **measured[config][name]}
         for name, (source, replaces, config) in KERNELS.items()]}

@@ -7,8 +7,9 @@
 4. ghost_1m       — 1M particles with ghost boundary shells.
 5. export_4m      — 4M particles with headless frame export.
 
-All five build as configured; ``build`` raises for an engine that is
-not ported.  ``export_4m``'s frame export (``viz_export``) is
+All five build as configured; ``build`` takes the JAX package's engine
+names and the port's (``engine.step.ENGINES``) and raises ``ValueError``
+for any other.  ``export_4m``'s frame export (``viz_export``) is
 ``app/bench.export_frames``, which the bench runs after its timed frames.
 ``frame_prologue`` is what runs before every frame of substeps
 (``bench.py:79-88``): the wave impulse for ``rotated_512k``, nothing for
@@ -27,6 +28,7 @@ from sph_tpu_torch.core import state as S
 from sph_tpu_torch.core.device import resolve
 from sph_tpu_torch.core.params import FluidParams, SimConfig, compute_grid_dims
 from sph_tpu_torch.core.state import ParticleState
+from sph_tpu_torch.engine.step import engine
 from sph_tpu_torch.physics.impulses import wave_impulse
 
 
@@ -65,25 +67,19 @@ CONFIGS = {
         h=0.4, grid_cap=256, viz_export=True),
 }
 
-# JAX package engine name -> the port's
-_IMPL = {"pallas": "cell", "cell": "cell", "brute": "brute",
-         "brute_pallas": "brute_kernel", "brute_kernel": "brute_kernel"}
-
 
 def build(cfg: Union[str, BenchConfig], seed: int = 0,
           neighbor_impl: Optional[str] = None, device=None):
     """Spawn + configure on ``device``: returns (state, params, sim_config).
 
     ``cfg`` is a name from ``CONFIGS`` or a ``BenchConfig``;
-    ``neighbor_impl`` overrides the configuration's engine.  ``device``
+    ``neighbor_impl`` overrides the configuration's engine, by the JAX
+    package's name or the port's (``engine.step.engine``).  ``device``
     is the CUDA card unless the caller names another: with no card,
     ``device=None`` raises (``core.device.resolve``)."""
     if isinstance(cfg, str):
         cfg = CONFIGS[cfg]
-    impl = neighbor_impl or cfg.neighbor_impl
-    if impl not in _IMPL:
-        raise NotImplementedError(
-            f"{cfg.name}: neighbor_impl {impl!r} is not ported yet")
+    impl = engine(neighbor_impl or cfg.neighbor_impl)
     device = resolve(device)
     spawn = S.spawn_standard(
         cfg.n_target, h=cfg.h, box_half=cfg.box_half, seed=seed,
@@ -103,7 +99,7 @@ def build(cfg: Union[str, BenchConfig], seed: int = 0,
     dims = compute_grid_dims(P.SHAPE_BOX, np.asarray(cfg.box_half),
                              np.asarray(cfg.box_euler_deg), cfg.h,
                              cap=cfg.grid_cap)
-    sim = SimConfig(n=state.n, grid_dims=dims, neighbor_impl=_IMPL[impl],
+    sim = SimConfig(n=state.n, grid_dims=dims, neighbor_impl=impl,
                     emit_rows=cfg.emit_rows)
     return state, params, sim
 

@@ -18,8 +18,8 @@ Usage: ``python -m sph_tpu_torch.app.main <subcommand> [options]``
 The scene runs on the CUDA card; :func:`main` takes the device as an
 argument (the tests name the CPU), the command line has no flag for it.
 ``--impl`` keeps the JAX package's choices and maps each to an engine of
-the port (:data:`IMPL`): the port's cell engine has no per-cell capacity,
-so ``cell``, ``binned`` and ``pallas`` (and ``auto``) all run it.
+the port (``engine.step.ENGINES``): the port's cell engine has no per-cell
+capacity, so ``cell``, ``binned`` and ``pallas`` (and ``auto``) all run it.
 """
 from __future__ import annotations
 
@@ -28,14 +28,16 @@ import json
 import sys
 import time
 
-# --impl (sph_tpu/app/main.py:27-28) -> the port's neighbor engine
-IMPL = {"auto": "cell", "brute": "brute", "brute_pallas": "brute_kernel",
-        "cell": "cell", "binned": "cell", "pallas": "cell"}
+from sph_tpu_torch.engine.step import ENGINES, engine
+
+# --impl's choices: the JAX package's (sph_tpu/app/main.py:27-28), every
+# name of the table but the port's own all-pairs kernels
+IMPL_CHOICES = [name for name in ENGINES if name != "brute_kernel"]
 
 
 def _add_scene_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--particles", type=int, default=50000)
-    p.add_argument("--impl", default="auto", choices=list(IMPL),
+    p.add_argument("--impl", default="auto", choices=IMPL_CHOICES,
                    help="auto, cell, binned and pallas run the cell "
                         "engine's kernels; brute the all-pairs oracle; "
                         "brute_pallas the all-pairs kernels")
@@ -59,7 +61,7 @@ def _build_scene(args):
     s = SceneSettings()
     s.particle_count = args.particles
     s.shape_type = args.shape
-    scene = Scene(settings=s, neighbor_impl=IMPL[args.impl], seed=args.seed,
+    scene = Scene(settings=s, neighbor_impl=engine(args.impl), seed=args.seed,
                   preset_dir=args.preset_dir, device=args.device)
     if args.art >= 0:
         scene.apply_art_preset(args.art)

@@ -78,6 +78,25 @@ def neighbor_aux(state: ParticleState, params: FluidParams, dt,
     return None
 
 
+# The JAX package's engine names (``--impl``, ``SimConfig.neighbor_impl``)
+# and the port's all-pairs kernels' own -> the port's engine of
+# :func:`sph_solve` (ROADMAP R13).  The cell engine has no per-cell
+# capacity, so it stands in for every cell-list engine of the JAX package,
+# exact where ``binned`` and ``pallas`` drop rows past a cell's capacity.
+ENGINES = {"auto": "cell", "cell": "cell", "binned": "cell", "pallas": "cell",
+           "brute": "brute", "brute_pallas": "brute_kernel",
+           "brute_kernel": "brute_kernel"}
+
+
+def engine(name: str) -> str:
+    """The port's engine for ``name``, a key of :data:`ENGINES`.  Raises
+    ``ValueError`` naming the choices for any other."""
+    if name not in ENGINES:
+        raise ValueError(f"unknown neighbor_impl {name!r}; choices: "
+                         f"{', '.join(ENGINES)}")
+    return ENGINES[name]
+
+
 def sph_solve(state: ParticleState, params: FluidParams, dt,
               config: SimConfig, aux=None) -> ParticleState:
     """The SPH force/integrate stage with the configured neighbor engine:

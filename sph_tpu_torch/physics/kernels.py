@@ -10,6 +10,8 @@ All are masked (no branches) and safe at r = 0.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 _PI = 3.141592653589
@@ -21,6 +23,22 @@ def poly6(r2: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     coeff = 315.0 / (64.0 * _PI * h**9)
     d = torch.clamp_min(h2 - r2, 0.0)
     return torch.where(r2 <= h2, coeff * d * d * d, 0.0)
+
+
+def spiky_grad(rij: torch.Tensor, h: torch.Tensor,
+               r: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """grad W_spiky(rij; h), vanishing at r=0 and r>h. rij: [..., 3]."""
+    if r is None:
+        # summed x, y, z in that order, as the JAX package's ``jnp.sum``
+        # does (``torch.sum`` over three elements may not)
+        sq = rij * rij
+        r = torch.sqrt(sq[..., 0] + sq[..., 1] + sq[..., 2])
+    coeff = -45.0 / (_PI * h**6)
+    d = torch.clamp_min(h - r, 0.0)
+    mag = coeff * d * d
+    safe_r = torch.clamp_min(r, 1e-12)
+    scale = torch.where((r > 0.0) & (r <= h), mag / safe_r, 0.0)
+    return rij * scale[..., None]
 
 
 def spiky_grad_mag_over_r(r: torch.Tensor, h: torch.Tensor) -> torch.Tensor:

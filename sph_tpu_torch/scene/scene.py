@@ -75,14 +75,18 @@ def _shape_aux(s: SceneSettings) -> tuple:
 
 class Scene:
     """The scene on ``device``: the CUDA card unless the caller names
-    another (``core.device.resolve``).  ``neighbor_impl`` is an engine of
-    ``engine.step.sph_solve``: ``"cell"`` (the cell engine's kernels),
-    ``"brute"`` (the all-pairs oracle) or ``"brute_kernel"`` (the
-    all-pairs kernels)."""
+    another (``core.device.resolve``).  ``neighbor_impl`` is a JAX
+    package's engine name or one of the port's (``engine.step.ENGINES``):
+    ``"binned"``, ``"pallas"``, ``"cell"`` and ``"auto"`` run the cell
+    engine's kernels, ``"brute"`` the all-pairs oracle, ``"brute_pallas"``
+    and ``"brute_kernel"`` the all-pairs kernels; any other name raises
+    ``ValueError`` here.  ``neighbor_impl`` keeps the name given, and
+    ``config.neighbor_impl`` holds the port's engine."""
 
     def __init__(self, settings: Optional[SceneSettings] = None,
                  neighbor_impl: str = "cell", seed: int = 0,
                  preset_dir: str = "presets", device=None):
+        self._engine = E.engine(neighbor_impl)
         self.device = resolve(device)
         self.settings = settings or SceneSettings()
         self.neighbor_impl = neighbor_impl
@@ -130,7 +134,7 @@ class Scene:
             np.asarray(s.box_euler, np.float32), s.h)
         self.config = SimConfig(
             n=self.state.n, grid_dims=dims,
-            neighbor_impl=self.neighbor_impl,
+            neighbor_impl=self._engine,
             fountain_mode=s.fountain_on,
             stencil_capacity=(STENCIL_CAPACITY
                               if self.stencil_targets is not None else 0))

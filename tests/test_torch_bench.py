@@ -72,11 +72,14 @@ def test_main_prints_one_json_line(fake_clock, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("engine, impl", [("brute", "brute"),
-                                          ("pallas", "cell")])
+                                          ("pallas", "cell"),
+                                          ("binned", "cell")])
 def test_main_passes_the_engine_to_the_build(engine, impl, fake_clock,
                                              capsys, monkeypatch):
     """bench.py's third argument (``bench.py:25``) overrides the engine,
-    by the JAX package's name: ``brute`` benches the all-pairs oracle."""
+    by the JAX package's name: ``brute`` benches the all-pairs oracle,
+    ``binned`` the cell engine; a name outside ``engine.step.ENGINES``
+    raises."""
     monkeypatch.setitem(bench.configs.CONFIGS, "tiny_2k", TINY)
     real = bench.run
     monkeypatch.setattr(bench, "run", lambda name, n, **kw: real(
@@ -85,8 +88,8 @@ def test_main_passes_the_engine_to_the_build(engine, impl, fake_clock,
     out, err = capsys.readouterr()
     assert f"impl={impl}" in err
     assert json.loads(out)["value"] == round(2048 * N_SUB / 0.3, 1)
-    with pytest.raises(NotImplementedError, match="binned"):
-        real(TINY, 1, device="cpu", neighbor_impl="binned")
+    with pytest.raises(ValueError, match="no_such_engine"):
+        real(TINY, 1, device="cpu", neighbor_impl="no_such_engine")
 
 
 def test_defaults_and_baseline_are_bench_pys(monkeypatch):

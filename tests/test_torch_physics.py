@@ -83,6 +83,30 @@ def test_smoothing_kernels(rng):
     close(TK.visc_laplacian(t(r), ht), JK.visc_laplacian(r, hj))
 
 
+@pytest.mark.parametrize("given_r", [False, True], ids=["r_computed",
+                                                         "r_given"])
+def test_spiky_grad(rng, given_r):
+    """grad W_spiky of rij [..., 3], with and without a precomputed r:
+    zero at r = 0 and for r > h, the rows within h against JAX's."""
+    h = np.float32(0.28)
+    edge = np.zeros((4, 3), np.float32)
+    edge[1, 0] = h                       # r = h
+    edge[2, 1] = h * 1.0001              # just past h
+    edge[3] = (0.3, -0.2, 0.25)          # well past h
+    rij = np.concatenate([edge, rng.uniform(-0.3, 0.3, (500, 3))]
+                         ).astype(np.float32).reshape(2, 252, 3)
+    r = np.sqrt((rij * rij).sum(-1)).astype(np.float32)
+    hj, ht = jnp.float32(h), torch.tensor(h)
+    got = TK.spiky_grad(t(rij), ht, t(r) if given_r else None)
+    want = JK.spiky_grad(rij, hj, r if given_r else None)
+    assert got.shape == (2, 252, 3)
+    close(got, want)
+    got = got.numpy()
+    assert (got[0, 0] == 0).all()
+    assert (got[r > h] == 0).all() and (got[0, 2:4] == 0).all()
+    assert (r > h).sum() > 50 and (got[(r > 0) & (r < h)] != 0).any(-1).all()
+
+
 def test_pair_force_terms(rng, jparams, tparams):
     n = 400
     rij = rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)

@@ -353,18 +353,28 @@ def test_export_4m_builds_bit_identical():
                                    rtol=1e-6, err_msg=k)
 
 
-def test_configs_kept_as_data_and_unported_parts_raise():
+def test_configs_kept_as_data_and_unported_parts_raise(monkeypatch):
     """Every configuration is the JAX package's, field by field, and all
-    five build (export_4m: test_export_4m_builds_bit_identical); an engine
-    that is not ported raises before anything is spawned."""
+    five build (export_4m: test_export_4m_builds_bit_identical); the JAX
+    package's ``binned`` builds the cell engine, and an engine name outside
+    ``engine.step.ENGINES`` raises before anything is spawned."""
     assert set(TCFG.CONFIGS) == set(JCFG.CONFIGS)
     for name, cfg in TCFG.CONFIGS.items():
         j = JCFG.CONFIGS[name]
         for f in dataclasses.fields(cfg):
             assert getattr(cfg, f.name) == getattr(j, f.name), (name, f.name)
+    spawned = []
+    monkeypatch.setattr(TCFG.S, "spawn_standard",
+                        lambda *a, **kw: spawned.append(a))
     for name in TCFG.CONFIGS:
-        with pytest.raises(NotImplementedError, match="binned"):
-            TCFG.build(name, neighbor_impl="binned", device="cpu")
+        with pytest.raises(ValueError, match="no_such_engine"):
+            TCFG.build(name, neighbor_impl="no_such_engine", device="cpu")
+    assert spawned == []
+    monkeypatch.undo()
+    _, _, cfg = TCFG.build(TCFG.BenchConfig(
+        name="tiny", n_target=300, box_half=(2.0, 2.0, 2.0)),
+        neighbor_impl="binned", device="cpu")
+    assert cfg.neighbor_impl == "cell"
     # dam_break_8k builds with the all-pairs kernels, or with the oracle
     for impl, want in ((None, "brute_kernel"), ("brute", "brute")):
         state, _, cfg = TCFG.build("dam_break_8k", neighbor_impl=impl,
