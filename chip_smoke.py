@@ -2215,7 +2215,7 @@ def gallery_in(dev, tmp):
     import torch
     from sph_tpu_torch.app import gallery
     from sph_tpu_torch.core.device import card_line
-    from sph_tpu_torch.engine import graph
+    from sph_tpu_torch.utils import trace
     from sph_tpu_torch.viz import splat
 
     # main calls settle, then shot (frame, then save_png), look by look in
@@ -2224,7 +2224,7 @@ def gallery_in(dev, tmp):
     settle, frame, save_png = gallery.settle, gallery.frame, gallery.save_png
 
     def timed_settle(scene, frames=30):
-        before, captures = launches(), graph.STATS["captures"]
+        before, captures = launches(), trace.counter("graph.captures")
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -2232,7 +2232,8 @@ def gallery_in(dev, tmp):
         stop.record()
         after = launches()
         settles.append(dict(substeps=subs, events=(start, stop),
-                            captures=graph.STATS["captures"] - captures,
+                            captures=trace.counter("graph.captures")
+                            - captures,
                             launches={k: after[k] - before.get(k, 0)
                                       for k in after}))
         return subs

@@ -20,13 +20,14 @@ import torch
 
 from sph_tpu_torch.core.device import resolve
 from sph_tpu_torch.native import build
+from sph_tpu_torch.utils import trace
 
 K = 8          # ranks per cell, as the script
 REPS = 20
 
 # Kernel launches since the last reset_launches() — only the CUDA path
-# counts, and only where it launches.
-LAUNCHES = {"smoke": 0}
+# counts, and only where it launches (``trace.counters``: ``launches.*``).
+LAUNCHES = trace.launch_counts({"smoke": 0})
 
 
 def reset_launches() -> None:

@@ -10,9 +10,10 @@ Each window is one frame: for a bench configuration its frame prologue
 (``configs.frame_prologue``: the wave at ``rotated_512k``, nothing
 elsewhere), then 16 substeps; for a scene path (``app/scene_paths.py``)
 the frame of ``scene_paths.frame`` (``Scene.update``): the audio reaction,
-then its 16 substeps.  After 2 warm-up frames, times 3 windows
-with the host clock around synchronised work (no profiler), then profiles
-one more window with ``torch.profiler`` (CPU and CUDA activity).
+then its 16 substeps.  The port's spans (``utils/trace.py``) are on
+throughout.  After 2 warm-up frames, times 3 windows with the host clock
+around synchronised work (no profiler), then profiles one more window with
+``torch.profiler`` (CPU and CUDA activity).
 ``--emit-rows`` runs the cell engine with ``SimConfig.emit_rows``;
 ``--slab`` runs a bench configuration's frames on the slab engine
 (``parallel/slabs.py``) as one NCCL rank, the slab path's own cost with no
@@ -24,10 +25,13 @@ path's kernels and gaps; the slab engine runs its eager loop.  Which
 runner ran and how many graphs it captured go to stderr.
 It prints the ms per substep of each window, the device operations
 (kernels, copies, fills) per substep, the device busy time per substep
-(the union of the device intervals), the device's idle share of the median
-unprofiled substep and of the profiled one, and the device time per
-substep by name, largest first.  The last line is the same as one JSON
-object.  It needs a CUDA card.
+(the union of the device intervals), the device's idle share of the
+profiled frame (busy time over the frame's wall time, both from its
+trace), the frame's idle ms by the innermost of the port's spans that the
+host was in ("outside spans": the sync, the scene's reaction, the tool),
+the device time per substep by name, largest first, and the port's span
+totals (host ms a frame) and counters over the timed and profiled frames.
+The last line is the same as one JSON object.  It needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -46,23 +50,43 @@ from sph_tpu_torch.app import configs, scene_paths
 from sph_tpu_torch.engine import graph
 from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
 from sph_tpu_torch.parallel import group as G, slabs
+from sph_tpu_torch.utils import trace
 
 WARMUP_FRAMES, SUBSTEPS, WINDOWS, TOP = 2, 16, 3, 12
+# the profiler label of the profiled frame and its sync
+FRAME = "profile_substeps.frame"
 
 
-def _busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals, in µs."""
-    total, cur_s, cur_e = 0.0, None, None
+def _merged(intervals):
+    """The union of (start, end) intervals as disjoint sorted ones."""
+    out = []
     for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
         else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total
+            out.append([s, e])
+    return out
+
+
+def _idle_by_span(busy, start, end, spans) -> dict:
+    """The device's idle time between ``start`` and ``end``, outside the
+    disjoint sorted ``busy`` intervals, summed by the innermost (shortest)
+    of ``spans`` ((name, start, end)) that covers it, "outside spans" where
+    none does.  A gap is cut where a span starts or ends."""
+    cuts = sorted({t for _, s, e in spans for t in (s, e)})
+    out = defaultdict(float)
+    prev = start
+    for s, e in [*busy, (end, end)]:
+        a, b = max(prev, start), min(s, end)
+        points = [a, *(t for t in cuts if a < t < b), b]
+        for p, q in zip(points, points[1:]):
+            if q <= p:
+                continue
+            mid = 0.5 * (p + q)
+            cover = [(se - ss, n) for n, ss, se in spans if ss <= mid <= se]
+            out[min(cover)[1] if cover else "outside spans"] += q - p
+        prev = max(prev, e)
+    return dict(out)
 
 
 def _bench_frames(name: str, emit_rows: bool, substeps: int):
@@ -115,6 +139,15 @@ def profile(name: str, emit_rows: bool = False, slab: bool = False,
             windows: int = WINDOWS, top: int = TOP):
     if not torch.cuda.is_available():
         raise RuntimeError("profile_substeps needs a CUDA card")
+    trace.enable(True)
+    try:
+        return _profile(name, emit_rows, slab, warmup_frames, substeps,
+                        windows, top)
+    finally:
+        trace.enable(False)
+
+
+def _profile(name, emit_rows, slab, warmup_frames, substeps, windows, top):
     if not slab:
         frames = (_scene_frames if name in scene_paths.PATHS
                   else _bench_frames)
@@ -141,6 +174,7 @@ def _measure(name, state, frame, tags, group, warmup_frames, substeps,
     for _ in range(warmup_frames):
         state = frame(state)
     torch.cuda.synchronize()
+    counts0, totals0 = trace.counters(), trace.totals()
 
     ms = []
     for _ in range(windows):
@@ -153,20 +187,41 @@ def _measure(name, state, frame, tags, group, warmup_frames, substeps,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        state = frame(state)
-        torch.cuda.synchronize()
+        with torch.profiler.record_function(FRAME):
+            state = frame(state)
+            torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) / substeps * 1e3
+    frames = windows + 1
+    counts = {k: v - counts0.get(k, 0) for k, v in trace.counters().items()
+              if v != counts0.get(k, 0)}
+    span_ms = {k: (sec - totals0.get(k, (0.0, 0))[0]) * 1e3 / frames
+               for k, (sec, n) in trace.totals().items()
+               if n > totals0.get(k, (0.0, 0))[1]}
 
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device operations, and the labels on the host (a label's device-side
+    # annotation, which has its name, is no operation)
+    dev, spans = [], []
+    for e in prof.events():
+        if e.name != FRAME and not e.name.startswith("sph."):
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                dev.append(e)
+        elif e.device_type == torch.autograd.DeviceType.CPU:
+            spans.append((e.name, e.time_range.start, e.time_range.end))
+    (window,) = [s[1:] for s in spans if s[0] == FRAME]
+    spans = [s for s in spans if s[0] != FRAME]
     if not dev:
         raise RuntimeError("the profiler recorded no device activity")
     by_name = defaultdict(lambda: [0.0, 0])
     for e in dev:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
-    busy_ms = _busy_us((e.time_range.start, e.time_range.end)
-                       for e in dev) / substeps / 1e3
+    busy = _merged((max(e.time_range.start, window[0]),
+                    min(e.time_range.end, window[1])) for e in dev
+                   if e.time_range.end > window[0]
+                   and e.time_range.start < window[1])
+    busy_us = sum(e - s for s, e in busy)
+    idle_ms = {k: v / 1e3 for k, v in
+               _idle_by_span(busy, *window, spans).items()}
     med = statistics.median(ms)
     if group is not None:       # the slab path's count exchanges
         tags["group_waits_per_substep"] = group.waits / (
@@ -174,7 +229,8 @@ def _measure(name, state, frame, tags, group, warmup_frames, substeps,
         runner = "runner: the slab engine's eager loop"
     else:
         runner = graph.describe()
-        tags.update(runner="graph", graphs_captured=graph.STATS["captures"])
+        tags.update(runner="graph",
+                    graphs_captured=trace.counter("graph.captures"))
     print(f"{name}: {runner}", file=sys.stderr, flush=True)
     out = {
         "config": name, **tags,
@@ -183,9 +239,11 @@ def _measure(name, state, frame, tags, group, warmup_frames, substeps,
         "ms_per_substep": ms, "median_ms_per_substep": med,
         "profiled_ms_per_substep": prof_ms,
         "device_ops_per_substep": len(dev) / substeps,
-        "device_busy_ms_per_substep": busy_ms,
-        "idle_share": 1.0 - busy_ms / med,
-        "idle_share_profiled": 1.0 - busy_ms / prof_ms,
+        "device_busy_ms_per_substep": busy_us / substeps / 1e3,
+        "idle_share": 1.0 - busy_us / (window[1] - window[0]),
+        "idle_ms_by_span": idle_ms,
+        "span_ms_per_frame": span_ms,
+        "counters": counts,
         "top": [{"name": k, "us_per_substep": v[0] / substeps,
                  "per_substep": v[1] / substeps}
                 for k, v in sorted(by_name.items(),
@@ -194,12 +252,21 @@ def _measure(name, state, frame, tags, group, warmup_frames, substeps,
     print(f"{name} on {out['card']}: ms/substep {ms!r} (median {med!r}); "
           f"profiled {prof_ms!r}", flush=True)
     print(f"  {out['device_ops_per_substep']!r} device ops per substep, "
-          f"device busy {busy_ms!r} ms per substep, idle share "
-          f"{out['idle_share']!r} (profiled {out['idle_share_profiled']!r})",
+          f"device busy {out['device_busy_ms_per_substep']!r} ms per "
+          f"substep, idle share {out['idle_share']!r} of the profiled frame",
           flush=True)
+    print("  the profiled frame's idle ms by the host's innermost span: "
+          + ", ".join(f"{k} {v!r}" for k, v in sorted(
+              idle_ms.items(), key=lambda kv: -kv[1])), flush=True)
     for row in out["top"]:
         print(f"  {row['us_per_substep']:10.3f} us/substep "
               f"{row['per_substep']:7.2f}x  {row['name'][:100]}", flush=True)
+    print(f"  the port's spans over the last {frames} frames, host ms a "
+          f"frame: " + ", ".join(f"{k} {v!r}" for k, v in sorted(
+              span_ms.items(), key=lambda kv: -kv[1])), flush=True)
+    print(f"  the port's counters over the last {frames} frames: "
+          + ", ".join(f"{k} {v}" for k, v in sorted(counts.items())),
+          flush=True)
     print(json.dumps(out), flush=True)
     return out
 

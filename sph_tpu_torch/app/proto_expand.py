@@ -24,14 +24,15 @@ import torch
 from sph_tpu_torch.app.microbench import time_ms
 from sph_tpu_torch.core.device import resolve
 from sph_tpu_torch.native import build
+from sph_tpu_torch.utils import trace
 
 F = 8          # payload fields
 WIDTH = 128    # columns of a row of the input: F payload, the target, pad
 SEED = 0
 
 # Kernel launches since the last reset_launches() — only the CUDA path
-# counts, and only where it launches.
-LAUNCHES = {"expand": 0}
+# counts, and only where it launches (``trace.counters``: ``launches.*``).
+LAUNCHES = trace.launch_counts({"expand": 0})
 
 
 def reset_launches() -> None:

@@ -26,7 +26,10 @@ Launch counts: the kernel wrappers count their launches when Python calls
 them (``native.build.launched``), and a replay calls none.  So a program
 keeps what its capture counted and adds it once per replay; the warm-up's
 and the capture's own counts are taken off again (the warm-up's launches
-compute nothing the caller gets, and a capture launches nothing).
+compute nothing the caller gets, and a capture launches nothing).  The
+counters ``graph.captures`` and ``graph.replays`` and the spans
+``sph.graph.*`` of the host's work around a replay are
+``utils/trace.py``'s; none of them runs inside the captured function.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import torch
 
 from sph_tpu_torch.neighbors import cells, sweeps
 from sph_tpu_torch.physics import brute_kernels
+from sph_tpu_torch.utils import trace
 
 # the launch counts of the kernels a substep can reach
 COUNTED = (cells.LAUNCHES, sweeps.LAUNCHES, brute_kernels.LAUNCHES)
@@ -47,7 +51,6 @@ MAX_PROGRAMS = 8
 
 _PROGRAMS: "collections.OrderedDict[Hashable, Program]" = (
     collections.OrderedDict())
-STATS = {"captures": 0, "replays": 0}
 
 
 def _flatten(obj) -> Tuple[List[torch.Tensor], Hashable]:
@@ -121,7 +124,7 @@ class Program:
         self.per_replay = tuple({k: c[k] - s[k] for k in c}
                                 for c, s in zip(captured, saved))
         self.outputs, self.out_spec = _flatten(out)
-        STATS["captures"] += 1
+        trace.count("graph.captures")
 
     def _capture(self, fn: Callable, static: tuple) -> Any:
         """``fn(*static)`` captured on the current (side) stream.
@@ -142,14 +145,17 @@ class Program:
 
     def __call__(self, leaves: List[torch.Tensor]) -> Any:
         """Replay on the tensor leaves of inputs of this program's key."""
-        torch._foreach_copy_(self.inputs, leaves)
-        self.graph.replay()
-        for d, add in zip(COUNTED, self.per_replay):
-            for k, v in add.items():
-                d[k] += v
-        STATS["replays"] += 1
-        return _unflatten(self.out_spec,
-                          iter([t.clone() for t in self.outputs]))
+        with trace.span("sph.graph.copy_in"):
+            torch._foreach_copy_(self.inputs, leaves)
+        with trace.span("sph.graph.replay"):
+            self.graph.replay()
+            for d, add in zip(COUNTED, self.per_replay):
+                for k, v in add.items():
+                    d[k] += v
+            trace.count("graph.replays")
+        with trace.span("sph.graph.clone_out"):
+            return _unflatten(self.out_spec,
+                              iter([t.clone() for t in self.outputs]))
 
 
 def run(static_key: Hashable, fn: Callable, warmup: Callable,
@@ -157,22 +163,26 @@ def run(static_key: Hashable, fn: Callable, warmup: Callable,
     """``fn(*args)`` through the program of its key: captured at the first
     call (after ``warmup(*args)`` on the program's own copies), replayed
     from then on."""
-    leaves, spec = _flatten(args)
-    key = (static_key, spec,
-           tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
-    prog = _PROGRAMS.get(key)
-    if prog is None:
-        while len(_PROGRAMS) >= MAX_PROGRAMS:
-            _PROGRAMS.popitem(last=False)
-        prog = _PROGRAMS[key] = Program(fn, warmup, args)
-    else:
-        _PROGRAMS.move_to_end(key)
-    return prog(leaves)
+    with trace.span("sph.graph.run"):
+        with trace.span("sph.graph.key"):
+            leaves, spec = _flatten(args)
+            key = (static_key, spec,
+                   tuple((tuple(t.shape), t.dtype, t.device) for t in leaves))
+            prog = _PROGRAMS.get(key)
+        if prog is None:
+            while len(_PROGRAMS) >= MAX_PROGRAMS:
+                _PROGRAMS.popitem(last=False)
+            with trace.span("sph.graph.capture"):
+                prog = _PROGRAMS[key] = Program(fn, warmup, args)
+        else:
+            _PROGRAMS.move_to_end(key)
+        return prog(leaves)
 
 
 def describe() -> str:
     """Which runner ran and how many programs it captured, for the tools'
     logs."""
     return (f"runner: one CUDA graph a frame (engine/graph.py), "
-            f"{STATS['captures']} captured, {STATS['replays']} replays, "
+            f"{trace.counter('graph.captures')} captured, "
+            f"{trace.counter('graph.replays')} replays, "
             f"{len(_PROGRAMS)} kept")

@@ -31,6 +31,7 @@ from sph_tpu_torch.engine import graph
 from sph_tpu_torch.neighbors import sweeps
 from sph_tpu_torch.physics import (brute_force, brute_kernels, constraints,
                                    emitters)
+from sph_tpu_torch.utils import trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,11 +72,12 @@ def neighbor_aux(state: ParticleState, params: FluidParams, dt,
     and static ghost structure (ghosts never move and face activation is
     fixed within a run; finding the ghosts waits for the device once), the
     all-pairs kernels' sweep params.  The oracle (``"brute"``) has none."""
-    if config.neighbor_impl == "cell":
-        return sweeps.prepare(state, params, dt, config)
-    if config.neighbor_impl == "brute_kernel":
-        return brute_kernels.prepare(params, dt)
-    return None
+    with trace.span("sph.neighbor_aux"):
+        if config.neighbor_impl == "cell":
+            return sweeps.prepare(state, params, dt, config)
+        if config.neighbor_impl == "brute_kernel":
+            return brute_kernels.prepare(params, dt)
+        return None
 
 
 # The JAX package's engine names (``--impl``, ``SimConfig.neighbor_impl``)
@@ -173,15 +175,21 @@ def run_substeps(state: ParticleState, params: FluidParams,
 
     On CPU tensors this is :func:`run_substeps_eager`.  On CUDA tensors the
     loop runs as one captured program (:func:`run_captured`), never as
-    eager launches: a capture that fails raises."""
-    dev = state.pos.device
-    if dev.type == "cpu":
-        return run_substeps_eager(state, params, buffers, dt, n_substeps,
-                                  config)
-    if dev.type != "cuda":
-        raise ValueError(f"run_substeps takes CUDA or CPU tensors, got {dev}")
-    aux = neighbor_aux(state, params, dt, config)
-    return run_captured(state, params, buffers, dt, n_substeps, config, aux)
+    eager launches: a capture that fails raises.
+
+    The frame is the span ``sph.run_substeps`` (``utils/trace.py``), whose
+    args are the frame's index, the count of the program's replays."""
+    with trace.span("sph.run_substeps", trace.counter("graph.replays")):
+        dev = state.pos.device
+        if dev.type == "cpu":
+            return run_substeps_eager(state, params, buffers, dt, n_substeps,
+                                      config)
+        if dev.type != "cuda":
+            raise ValueError(f"run_substeps takes CUDA or CPU tensors, got "
+                             f"{dev}")
+        aux = neighbor_aux(state, params, dt, config)
+        return run_captured(state, params, buffers, dt, n_substeps, config,
+                            aux)
 
 
 def run_captured(state: ParticleState, params: FluidParams,

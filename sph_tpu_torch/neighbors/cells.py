@@ -27,10 +27,11 @@ import torch
 from sph_tpu_torch.core.params import FluidParams, grid_cell_coords
 from sph_tpu_torch.core.state import ParticleState
 from sph_tpu_torch.native import build as native
+from sph_tpu_torch.utils import trace
 
 # Kernel launches since the last reset_launches() — only the CUDA path
-# counts, and only where it launches.
-LAUNCHES = {"cell_table": 0}
+# counts, and only where it launches (``trace.counters``: ``launches.*``).
+LAUNCHES = trace.launch_counts({"cell_table": 0})
 
 
 def reset_launches() -> None:
@@ -171,6 +172,7 @@ def ghost_sort(state: ParticleState, params: FluidParams,
     active) only, stable; ``order`` indexes the rows of ``state``.  ``key``
     as in :func:`fluid_sort`."""
     contrib = state.contrib_mask(params.ghost_face_active)
+    trace.count("host_waits")       # nonzero waits for the card's count
     rows = torch.nonzero((state.ghost > 0) & contrib).squeeze(1)
     if key is None:
         key = compute_keys_ymajor(state.pos[rows],
@@ -262,8 +264,11 @@ def build_ghosts(state: ParticleState, params: FluidParams,
     the cells near a ghost.  Ghosts never move and face activation is fixed
     within a run, so this is built once per ``run_substeps``."""
     nx, ny, nz = dims
-    skey, order = ghost_sort(state, params, dims, key)
-    tbl = cell_table(skey, order, state.pos, None, nx * ny * nz)
-    return GhostRows(tbl.pos, tbl.cell_start, tbl.cell_end,
-                     ghost_records(tbl.pos, params.rest_density, params.mass),
-                     ghost_near(tbl.cell_start, tbl.cell_end, dims))
+    trace.count("ghost_builds")
+    with trace.span("sph.build_ghosts"):
+        skey, order = ghost_sort(state, params, dims, key)
+        tbl = cell_table(skey, order, state.pos, None, nx * ny * nz)
+        return GhostRows(tbl.pos, tbl.cell_start, tbl.cell_end,
+                         ghost_records(tbl.pos, params.rest_density,
+                                       params.mass),
+                         ghost_near(tbl.cell_start, tbl.cell_end, dims))

@@ -40,14 +40,16 @@ from sph_tpu_torch.neighbors import cells
 from sph_tpu_torch.neighbors.cells import GhostRows
 from sph_tpu_torch.physics import common as C
 from sph_tpu_torch.physics.kernels import _PI
+from sph_tpu_torch.utils import trace
 
 # Rows per chunk of the plain versions: candidates are gathered as
 # [rows, 9 * widest range] tensors, so this bounds their memory.
 _PLAIN_CHUNK = 8192
 
 # Kernel launches since the last reset_launches() — only the CUDA path
-# counts, and only where it launches.
-LAUNCHES = {"density": 0, "force_xsph": 0, "force_xsph_emit": 0}
+# counts, and only where it launches (``trace.counters``: ``launches.*``).
+LAUNCHES = trace.launch_counts({"density": 0, "force_xsph": 0,
+                                 "force_xsph_emit": 0})
 
 # The force kernel's queue (kQueue and kMarginFrac in csrc/sweeps.cu): its
 # entries a row, and its margin around the row's predicted position in h.
@@ -523,6 +525,7 @@ def prepare(state: ParticleState, params: FluidParams, dt,
     structure.  Ghosts never move and face activation is fixed within a
     run, so ``engine.run_substeps`` builds this once, before its loop."""
     pv = make_pvec(params, dt, config.grid_dims)
+    trace.count("host_waits")       # the bool of .any() waits for the card
     if not bool((state.ghost > 0).any()):
         return CellAux(pv, None)
     return CellAux(pv, cells.build_ghosts(state, params, config.grid_dims))

@@ -29,14 +29,15 @@ from sph_tpu_torch.native import build
 from sph_tpu_torch.neighbors.sweeps import (CONST_NAMES, SweepParams,
                                            make_pvec)
 from sph_tpu_torch.physics import common as C
+from sph_tpu_torch.utils import trace
 
 # i rows per chunk of the plain versions: each chunk builds [rows, n]
 # pair tensors, so this bounds their memory.
 _PLAIN_ROWS = 512
 
 # Kernel launches since the last reset_launches() — only the CUDA path
-# counts, and only where it launches.
-LAUNCHES = {"brute_density": 0, "brute_force": 0}
+# counts, and only where it launches (``trace.counters``: ``launches.*``).
+LAUNCHES = trace.launch_counts({"brute_density": 0, "brute_force": 0})
 
 
 def reset_launches() -> None:

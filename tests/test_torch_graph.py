@@ -31,6 +31,7 @@ from sph_tpu_torch.core.convert import to_numpy
 from sph_tpu_torch.engine import graph
 from sph_tpu_torch.engine import step as TSTEP
 from sph_tpu_torch.neighbors import cells, sweeps
+from sph_tpu_torch.utils import trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -153,9 +154,9 @@ def jax_frames(state, params, cfg, buf):
 @pytest.mark.parametrize("case", CASES)
 def test_run_substeps_is_the_eager_loop_and_matches_jax(case):
     state, params, cfg, buf = port_case(case, "cpu")
-    captures = graph.STATS["captures"]
+    captures = trace.counter("graph.captures")
     got = frames(TSTEP.run_substeps, state, params, cfg, buf)
-    assert graph.STATS["captures"] == captures
+    assert trace.counter("graph.captures") == captures
     assert_bit_identical(got, frames(TSTEP.run_substeps_eager, state, params,
                                      cfg, buf))
     want = jax_frames(state, params, cfg, buf)
@@ -288,9 +289,9 @@ def cuda():
 @pytest.mark.parametrize("case", CUDA_CASES)
 def test_graph_is_bit_identical_to_eager_on_cuda(cuda, case):
     state, params, cfg, buf = port_case(case, cuda)
-    captures = graph.STATS["captures"]
+    captures = trace.counter("graph.captures")
     got = frames(TSTEP.run_substeps, state, params, cfg, buf)
-    assert graph.STATS["captures"] == captures + 1
+    assert trace.counter("graph.captures") == captures + 1
     assert_bit_identical(got, frames(TSTEP.run_substeps_eager, state, params,
                                      cfg, buf))
 
@@ -311,12 +312,12 @@ def test_graph_follows_a_gravity_change_on_cuda(cuda):
 @pytest.mark.cuda
 def test_graph_per_substep_count_on_cuda(cuda):
     state, params, cfg, buf = port_case("ghosts", cuda)
-    captures = graph.STATS["captures"]
+    captures = trace.counter("graph.captures")
     for n in (3, 5, 3):
         assert_bit_identical(
             TSTEP.run_substeps(state, params, buf, params.dt, n, cfg),
             TSTEP.run_substeps_eager(state, params, buf, params.dt, n, cfg))
-    assert graph.STATS["captures"] == captures + 2
+    assert trace.counter("graph.captures") == captures + 2
 
 
 @pytest.mark.cuda
