@@ -24,6 +24,15 @@ prints no result line):
              kernel's source records bit-equal to the plain packing; then
              the density kernel and both cell-engine force kernels on a
              state with 2,400 rows in one cell, against the plain versions;
+3b. container — on the full ``default_131k`` and ``ghost_1m`` states
+             (sorted rows and the sweep kernels' outputs after one plain
+             substep), the container pass (``csrc/container.cu``) in each
+             of its three modes, reassembly and container in one launch
+             (the cell engine's substep), reassembly alone (the slab
+             engine's) and the container alone (the other engines'),
+             bit-identical to the plain torch ops on the card (a box at
+             zero angles), each timed with CUDA events over 50 launches
+             beside the plain ops and its bound;
 4. emit    — on the full ``rotated_512k`` state (after the wave and one
              plain substep), the cell table bit-equal as above, then the
              emitted-row force kernel against its plain version, timed
@@ -249,6 +258,9 @@ KERNELS = {
     "force_xsph_emit": ("sph_tpu_torch/csrc/sweeps.cu",
                         "sph_tpu/neighbors/pallas_sweeps.py:763",
                         "rotated_512k"),
+    "container": ("sph_tpu_torch/csrc/container.cu",
+                  "none: the torch ops of sweeps.reassemble_plain and "
+                  "constraints.apply_container_plain", "ghost_1m"),
     "smoke": ("sph_tpu_torch/csrc/micro.cu", "scripts/microbench.py:44",
               "micro"),
     "expand": ("sph_tpu_torch/csrc/micro.cu",
@@ -303,8 +315,9 @@ def counted_modules():
     """The modules whose wrappers count their kernels' launches."""
     from sph_tpu_torch.app import microbench, proto_expand
     from sph_tpu_torch.neighbors import cells, sweeps
-    from sph_tpu_torch.physics import brute_kernels
-    return (cells, sweeps, brute_kernels, microbench, proto_expand)
+    from sph_tpu_torch.physics import brute_kernels, constraints
+    return (cells, sweeps, constraints, brute_kernels, microbench,
+            proto_expand)
 
 
 def reset_launches() -> None:
@@ -623,6 +636,111 @@ def phase_kernels(dev, config, plain_reps=5):
            for name in times}
     out["cell_table"].update(alone)
     return out
+
+
+CONTAINER_REPS = 50
+
+
+def same_fields(label, got, want) -> None:
+    """Every field of two states bit-identical, or raise."""
+    import dataclasses
+
+    import torch
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"{label}: {f.name} is not bit-identical to the plain torch "
+                f"ops ({int((a != b).sum())} elements differ, max abs "
+                f"{max_err(a.float(), b.float())!r})")
+
+
+def phase_container(dev, config):
+    """The container pass at full ``config`` in its three modes, on the
+    sorted rows and the sweep kernels' outputs after one plain substep:
+    each bit-identical to the plain torch ops on the same tensors (the
+    configurations' box has zero Euler angles, so its rotation is exactly
+    the identity), and the cell engine's mode on those positions pushed out
+    of the box too; each mode timed over CONTAINER_REPS launches beside the
+    plain ops.  Returns the record of the mode the cell engine's substep
+    launches (reassembly and container), the other two under ``modes``."""
+    import torch
+    from sph_tpu_torch.app import configs
+    from sph_tpu_torch.app.microbench import time_ms
+    from sph_tpu_torch.neighbors import cells, sweeps
+    from sph_tpu_torch.physics import constraints
+
+    state, params, cfg = configs.build(config, device=dev)
+    if bool(params.box_euler_deg.any()) or params.shape_type != 0:
+        raise AssertionError(f"{config}: not a box at zero Euler angles")
+    pv, ghosts = sweeps.prepare(state, params, params.dt, cfg)
+    r = cells.build(state, params, cfg.grid_dims)
+    rho, pres, _ = sweeps.density_sources(r.key, r.state.pos, r.state.vel,
+                                          r.cell_start, r.cell_end, pv,
+                                          ghosts)
+    npos, nvel, acc = sweeps.force_xsph(r.key, r.state.pos, r.state.vel, rho,
+                                        r.cell_start, r.cell_end, pv, ghosts)
+    s, g = r.state, ghosts is not None
+    # one substep moves no row out of the box, so the walls' branch is held
+    # bit for bit on the sweeps' positions pushed 5% out from the center too
+    pushed = params.box_center + (npos - params.box_center) * 1.05
+    sweep = (rho, pres, pushed, nvel, acc)
+    got = sweeps.reassemble(s, *sweep, params, ghosts=g, contain=True)
+    want = constraints.apply_container_plain(
+        sweeps.reassemble_plain(s, *sweep, params, g), params)
+    torch.cuda.synchronize()
+    same_fields(f"{config} container, positions pushed out", got, want)
+    log(f"{config} container on the positions pushed 5% out: bit-identical "
+        f"to the plain torch ops, {int((want.pos != pushed).any(-1).sum())} "
+        f"rows moved by the container")
+    sweep = (rho, pres, npos, nvel, acc)
+    solved = sweeps.reassemble_plain(s, *sweep, params, g)
+    torch.cuda.synchronize()
+    n = s.n
+    n_ghost = int((s.ghost > 0).sum())
+    off = int(((s.ghost > 0) & ~s.contrib_mask(params.ghost_face_active))
+              .sum())
+    # bytes a launch: each column read once and each written once; ghost,
+    # valid (4 + 4), and in reassembly nvel, rho, foam (20) for every row,
+    # face for each ghost row and the old vel, acc, density, pressure (32)
+    # for each ghost on an inactive face
+    ghost_in = (16 * n + 4 * n_ghost + 32 * off) if g else 0
+    modes = {
+        "both": (lambda: sweeps.reassemble(s, *sweep, params, ghosts=g,
+                                           contain=True),
+                 lambda: constraints.apply_container_plain(
+                     sweeps.reassemble_plain(s, *sweep, params, g), params),
+                 # + npos in; pos, vel, foam out (+ acc, density, pressure)
+                 (8 + 20 + 12) * n + ghost_in + 28 * n + (20 * n if g else 0)),
+        "reassemble": (lambda: sweeps.reassemble(s, *sweep, params, ghosts=g),
+                       lambda: sweeps.reassemble_plain(s, *sweep, params, g),
+                       # foam out (+ vel, acc, density, pressure)
+                       (8 + 20) * n + ghost_in + 4 * n
+                       + (32 * n if g else 0)),
+        "contain": (lambda: constraints.apply_container(solved, params),
+                    lambda: constraints.apply_container_plain(solved,
+                                                              params),
+                    # pos, vel in and out
+                    (8 + 24) * n + 24 * n),
+    }
+    out = {}
+    for mode, (kernel, plain, nbytes) in modes.items():
+        constraints.reset_launches()
+        got = kernel()
+        torch.cuda.synchronize()
+        if constraints.LAUNCHES["container"] != 1:
+            raise AssertionError(f"{config} container {mode}: launches "
+                                 f"{constraints.LAUNCHES}")
+        same_fields(f"{config} container {mode}", got, plain())
+        moved = 0 if mode == "reassemble" else int(
+            (got.pos != solved.pos).any(-1).sum())
+        log(f"{config} container {mode}: bit-identical to the plain torch "
+            f"ops ({n} rows, {n_ghost} ghosts, {off} on inactive faces; "
+            f"{moved} rows moved by the container)")
+        out[mode] = report(config, f"container ({mode})",
+                           time_ms(kernel, CONTAINER_REPS),
+                           time_ms(plain, CONTAINER_REPS), nbytes, 0, n)
+    return {"max_abs_err": 0.0, **out.pop("both"), "modes": out}
 
 
 CROWD_ROWS = 2400            # rows in the one crowded cell
@@ -1329,7 +1447,10 @@ def phase_main(dev, config):
 
     total = FRAMES * FRAME_SUBSTEPS
     timed = total - FRAME_SUBSTEPS
+    # one container pass a substep on every engine: the cell engine's
+    # reassembly, the others' scene stages
     expect = dict.fromkeys(counts, 0)
+    expect["container"] = total
     if cfg.neighbor_impl == "cell":
         # the ghost structure is one more cell table per run_substeps call
         expect.update({"density": total, "cell_table": total + (
@@ -1626,7 +1747,8 @@ def phase_scene(dev, name):
 
     total = FRAMES * FRAME_SUBSTEPS
     expect = dict.fromkeys(counts, 0)
-    expect.update(cell_table=total, density=total, force_xsph=total)
+    expect.update(cell_table=total, density=total, force_xsph=total,
+                  container=total)
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts} in {total} "
                              f"substeps, expected {expect}")
@@ -2092,7 +2214,8 @@ def reel_in(dev, tmp):
             raise AssertionError(f"reel: {name} is {img.shape}, or uniform")
     total = sum(expect_sub)
     expect = dict.fromkeys(counts, 0)
-    expect.update(cell_table=total, density=total, force_xsph=total)
+    expect.update(cell_table=total, density=total, force_xsph=total,
+                  container=total)
     if counts != expect:
         raise AssertionError(f"reel: launches {counts}, expected {expect}")
     state, params = scene.state, scene.params
@@ -2282,7 +2405,8 @@ def gallery_in(dev, tmp):
         n_sub = sum(subs)
         total += n_sub
         expect = dict.fromkeys(rec["launches"], 0)
-        expect.update(cell_table=n_sub, density=n_sub, force_xsph=n_sub)
+        expect.update(cell_table=n_sub, density=n_sub, force_xsph=n_sub,
+                      container=n_sub)
         if len(subs) != look.frames or rec["launches"] != expect:
             raise AssertionError(f"gallery {name}: {len(subs)} frames, "
                                  f"launches {rec['launches']}, expected "
@@ -2331,7 +2455,8 @@ def gallery_in(dev, tmp):
             f"card against CPU {close}; launches {rec['launches']}, on "
             f"{card_line()}")
     expect = dict.fromkeys(counts, 0)
-    expect.update(cell_table=total, density=total, force_xsph=total)
+    expect.update(cell_table=total, density=total, force_xsph=total,
+                  container=total)
     if counts != expect:
         raise AssertionError(f"gallery: launches {counts}, expected {expect}")
     log(f"gallery: {len(shots)} stills at {gallery.W}x{gallery.H}, {total} "
@@ -2631,6 +2756,9 @@ def main() -> int:
         # logged only: the kernels' record keeps its configurations
         "export_4m": timed("kernels export_4m", phase_kernels, dev,
                            "export_4m", plain_reps=1)}
+    for config in ("default_131k", "ghost_1m"):
+        measured[config]["container"] = timed(
+            f"container {config}", phase_container, dev, config)
     timed("crowded", phase_crowded, dev)
     timed("small", phase_small, dev)
     counts, graph_ms = {}, {}

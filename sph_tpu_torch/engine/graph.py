@@ -40,11 +40,12 @@ from typing import Any, Callable, Hashable, List, Tuple
 import torch
 
 from sph_tpu_torch.neighbors import cells, sweeps
-from sph_tpu_torch.physics import brute_kernels
+from sph_tpu_torch.physics import brute_kernels, constraints
 from sph_tpu_torch.utils import trace
 
 # the launch counts of the kernels a substep can reach
-COUNTED = (cells.LAUNCHES, sweeps.LAUNCHES, brute_kernels.LAUNCHES)
+COUNTED = (cells.LAUNCHES, sweeps.LAUNCHES, constraints.LAUNCHES,
+           brute_kernels.LAUNCHES)
 # programs kept at once; the oldest goes first (the reel needs two: 33 and
 # 34 substeps)
 MAX_PROGRAMS = 8

@@ -100,28 +100,35 @@ def engine(name: str) -> str:
 
 
 def sph_solve(state: ParticleState, params: FluidParams, dt,
-              config: SimConfig, aux=None) -> ParticleState:
+              config: SimConfig, aux=None, contain: bool = False
+              ) -> ParticleState:
     """The SPH force/integrate stage with the configured neighbor engine:
     ``"brute"`` is the all-pairs oracle, ``"cell"`` the cell engine,
     ``"brute_kernel"`` the all-pairs kernels (``brute_pallas``'s
-    counterpart, ``dam_break_8k``)."""
+    counterpart, ``dam_break_8k``).  ``contain`` has the cell engine apply
+    the container in the pass that reassembles its sweeps' outputs
+    (``sweeps.reassemble``); the other engines take no such pass."""
     if config.neighbor_impl == "brute":
         return brute_force.substep(state, params, dt)
     if config.neighbor_impl == "brute_kernel":
         return brute_kernels.substep(state, params, dt, pv=aux)
     if config.neighbor_impl == "cell":
-        return sweeps.substep(state, params, dt, config, aux=aux)
+        return sweeps.substep(state, params, dt, config, aux=aux,
+                              contain=contain)
     raise ValueError(f"unknown neighbor_impl: {config.neighbor_impl!r}")
 
 
 def scene_stages(state: ParticleState, params: FluidParams,
-                 buffers: SceneBuffers, dt, config: SimConfig
+                 buffers: SceneBuffers, dt, config: SimConfig,
+                 contained: bool = False
                  ) -> Tuple[ParticleState, SceneBuffers]:
-    """The substep's stages after the solve: container, then river mode's
-    terrain, channel and stream, or (without river mode) the fountain's
-    recycling.  River mode takes precedence over the fountain
-    (``sph_tpu/engine/step.py:92``).  Nothing here waits for the host."""
-    state = constraints.apply_container(state, params)
+    """The substep's stages after the solve: container (unless the solve
+    ``contained`` it already), then river mode's terrain, channel and
+    stream, or (without river mode) the fountain's recycling.  River mode
+    takes precedence over the fountain (``sph_tpu/engine/step.py:92``).
+    Nothing here waits for the host."""
+    if not contained:
+        state = constraints.apply_container(state, params)
     if config.river_mode:
         state = constraints.apply_terrain(state, buffers.terrain, params)
         state = constraints.apply_channel(state, params, dt)
@@ -139,9 +146,14 @@ def scene_stages(state: ParticleState, params: FluidParams,
 def substep(state: ParticleState, params: FluidParams,
             buffers: SceneBuffers, dt, config: SimConfig, aux=None
             ) -> Tuple[ParticleState, SceneBuffers]:
-    """One full substep: solve -> container -> river -> fountain."""
-    state = sph_solve(state, params, dt, config, aux=aux)
-    return scene_stages(state, params, buffers, dt, config)
+    """One full substep: solve -> container -> river -> fountain.  The
+    cell engine applies the container inside its solve, in the one pass
+    that reassembles its sweeps' outputs; the other engines in
+    :func:`scene_stages`."""
+    contained = config.neighbor_impl == "cell"
+    state = sph_solve(state, params, dt, config, aux=aux, contain=contained)
+    return scene_stages(state, params, buffers, dt, config,
+                        contained=contained)
 
 
 def _loop(state: ParticleState, params: FluidParams, buffers: SceneBuffers,

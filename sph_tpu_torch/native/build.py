@@ -47,6 +47,28 @@ class CellColumnsC(ctypes.Structure):
                 ("n_wide", ctypes.c_int), ("n_narrow", ctypes.c_int)]
 
 
+class ContainerParamsC(ctypes.Structure):
+    """ctypes mirror of ``SphContainerParams`` in ``csrc/container.h``: the
+    device pointers of the FluidParams fields the container pass reads."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "center", "half", "euler_deg", "aux", "restitution", "friction",
+        "rest_density", "foam_gen", "foam_vel_ref", "face_active", "trefoil")]
+
+
+class ContainerRowsC(ctypes.Structure):
+    """ctypes mirror of ``SphContainerRows`` in ``csrc/container.h``: the
+    columns read, their strides in floats, and the columns written (null:
+    not written)."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "pos", "vel", "acc", "density", "pressure", "foam", "ghost", "valid",
+        "face", "npos", "nvel", "nacc", "rho", "pres")]
+        + [(f"{name}_stride", ctypes.c_int) for name in (
+            "pos", "vel", "acc", "density", "pressure", "foam", "npos",
+            "nvel", "nacc", "rho", "pres")]
+        + [(f"out_{name}", ctypes.c_void_p) for name in (
+            "pos", "vel", "acc", "density", "pressure", "foam")])
+
+
 def _sources():
     names = sorted(f for f in os.listdir(CSRC_DIR)
                    if f.endswith((".cu", ".cuh", ".h")))
@@ -103,8 +125,8 @@ def library_path() -> str:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (``csrc/*.cu``: the cell table, the cell
-    engine's sweeps, the all-pairs kernels and the micro-kernels) with its
-    C signatures declared."""
+    engine's sweeps, the container pass, the all-pairs kernels and the
+    micro-kernels) with its C signatures declared."""
     lib = ctypes.CDLL(library_path())
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sph_cell_table.argtypes = [p, p, i, i, ctypes.POINTER(CellColumnsC),
@@ -121,6 +143,10 @@ def library() -> ctypes.CDLL:
     lib.sph_force_xsph_emit.argtypes = [p, p, i, p, p, i, p, p, i, p, i, i,
                                         i, p, p]
     lib.sph_force_xsph_emit.restype = i
+    lib.sph_container.argtypes = [ctypes.POINTER(ContainerRowsC),
+                                  ctypes.POINTER(ContainerParamsC), i, i, i,
+                                  i, i, p]
+    lib.sph_container.restype = i
     lib.sph_brute_density.argtypes = [p, p, i, p, p, p]
     lib.sph_brute_density.restype = i
     lib.sph_brute_force.argtypes = [p, p, p, p, p, i, p, p, p, p, p]

@@ -39,6 +39,7 @@ from sph_tpu_torch.native import build
 from sph_tpu_torch.neighbors import cells
 from sph_tpu_torch.neighbors.cells import GhostRows
 from sph_tpu_torch.physics import common as C
+from sph_tpu_torch.physics import constraints
 from sph_tpu_torch.physics.kernels import _PI
 from sph_tpu_torch.utils import trace
 
@@ -532,13 +533,33 @@ def prepare(state: ParticleState, params: FluidParams, dt,
 
 
 def reassemble(s: ParticleState, rho, pres, npos, nvel, acc,
-               params: FluidParams, ghosts: bool = False) -> ParticleState:
-    """Sweep outputs -> the sorted particle state, with foam.  The sweeps
-    already pass non-fluid rows through (pos, vel kept; acc, rho, pres
-    zero), so only foam needs the fluid mask, and ghost rows follow the
-    oracle (``brute_force.substep``, ``common.finish_density``) when
-    ``ghosts``: a contributing ghost gets rho0, P = 0, v = 0 and acc = 0,
-    a ghost on an inactive face keeps its old values."""
+               params: FluidParams, ghosts: bool = False,
+               contain: bool = False) -> ParticleState:
+    """Sweep outputs -> the sorted particle state, with foam
+    (:func:`reassemble_plain`), and with ``contain`` the container applied
+    to it as well (``constraints.apply_container``, the stage that follows
+    in a substep).  On CPU tensors the plain versions, one after the other;
+    on CUDA tensors one launch of the container pass
+    (``constraints.container_pass``, ``csrc/container.cu``); any other
+    device raises ``ValueError``."""
+    if s.pos.device.type == "cpu":
+        out = reassemble_plain(s, rho, pres, npos, nvel, acc, params, ghosts)
+        if contain:
+            out = constraints.apply_container_plain(out, params)
+        return out
+    return constraints.container_pass(s, params, (rho, pres, npos, nvel, acc),
+                                      ghosts=ghosts, contain=contain)
+
+
+def reassemble_plain(s: ParticleState, rho, pres, npos, nvel, acc,
+                     params: FluidParams, ghosts: bool = False
+                     ) -> ParticleState:
+    """Plain torch version of the reassembly.  The sweeps already pass
+    non-fluid rows through (pos, vel kept; acc, rho, pres zero), so only
+    foam needs the fluid mask, and ghost rows follow the oracle
+    (``brute_force.substep``, ``common.finish_density``) when ``ghosts``: a
+    contributing ghost gets rho0, P = 0, v = 0 and acc = 0, a ghost on an
+    inactive face keeps its old values."""
     foam = torch.where(s.fluid_mask(),
                        C.foam_update(s.foam, nvel, rho, params), s.foam)
     if ghosts:
@@ -557,10 +578,13 @@ def reassemble(s: ParticleState, rho, pres, npos, nvel, acc,
 
 
 def substep(state: ParticleState, params: FluidParams, dt,
-            config: SimConfig, aux: Optional[CellAux] = None
-            ) -> ParticleState:
+            config: SimConfig, aux: Optional[CellAux] = None,
+            contain: bool = False) -> ParticleState:
     """One cell-engine substep.  Returns the state in SORTED order
-    (identity lives in ``orig_id``), as the JAX engine does.
+    (identity lives in ``orig_id``), as the JAX engine does.  With
+    ``contain`` the container is applied too, in the pass that reassembles
+    the sweeps' outputs (:func:`reassemble`): ``engine.step.substep`` then
+    leaves it out of its scene stages.
 
     With ``config.emit_rows`` the force sweep packs its outputs and rho
     into rows and the state reads pos, vel, acc and rho from there
@@ -582,4 +606,4 @@ def substep(state: ParticleState, params: FluidParams, dt,
                                      rows.cell_start, rows.cell_end, pv,
                                      ghosts, src)
     return reassemble(s, rho, pres, npos, nvel, acc, params,
-                      ghosts=ghosts is not None)
+                      ghosts=ghosts is not None, contain=contain)

@@ -17,10 +17,18 @@ Python where the JAX package switches on a traced id.  The JAX package
 also keeps a component-wise "plane form" of the box for its TPU table
 layout; one form is enough here.  Every function is out of place: it
 never writes into the tensors of the state it is given.
+
+The container is a CUDA kernel (``csrc/container.cu``) with its plain
+torch version beside it (:func:`apply_container_plain`): CPU tensors take
+the plain version, CUDA tensors launch the kernel, anything else raises.
+The same kernel also reassembles the cell engine's sweep outputs
+(``neighbors/sweeps.reassemble``), alone or with the container in one
+launch (:func:`container_pass`).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,8 +37,20 @@ from sph_tpu_torch.core import params as P
 from sph_tpu_torch.core.device import constant
 from sph_tpu_torch.core.params import FluidParams, rotation_matrix
 from sph_tpu_torch.core.state import ParticleState
+from sph_tpu_torch.native import build as native
+from sph_tpu_torch.utils import trace
 
 _EPS = 1e-6
+
+# Launches of the container pass since the last reset_launches(): only the
+# CUDA path counts, where it launches (``trace.counters``:
+# ``launches.container``).
+LAUNCHES = trace.launch_counts({"container": 0})
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
@@ -199,7 +219,18 @@ def project_shape(p_local: torch.Tensor, shape_type: int,
 
 
 def apply_container(state: ParticleState, params: FluidParams) -> ParticleState:
-    """Analytic-shape containment with restitution + friction.
+    """Analytic-shape containment with restitution + friction
+    (:func:`apply_container_plain`): on CPU tensors the plain version, on
+    CUDA tensors one launch of ``csrc/container.cu`` in its container mode
+    (:func:`container_pass`); any other device raises ``ValueError``."""
+    if state.pos.device.type == "cpu":
+        return apply_container_plain(state, params)
+    return container_pass(state, params)
+
+
+def apply_container_plain(state: ParticleState,
+                          params: FluidParams) -> ParticleState:
+    """Plain torch version of the container pass.
 
     Mirrors ``OBBConstraints.comp:41-237``: world -> local via R^T (p - c),
     project, normal back to world, reflect ``vn' = -e vn``,
@@ -223,6 +254,116 @@ def apply_container(state: ParticleState, params: FluidParams) -> ParticleState:
         pos=torch.where(live, new_pos, state.pos),
         vel=torch.where(live, new_vel, state.vel),
     )
+
+
+# The FluidParams fields of SphContainerParams (csrc/container.h): field,
+# the struct's name, dtype, element count
+_PARAM_FIELDS = (
+    ("box_center", "center", torch.float32, 3),
+    ("box_half", "half", torch.float32, 3),
+    ("box_euler_deg", "euler_deg", torch.float32, 3),
+    ("shape_aux", "aux", torch.float32, 3),
+    ("wall_restitution", "restitution", torch.float32, 1),
+    ("wall_friction", "friction", torch.float32, 1),
+    ("rest_density", "rest_density", torch.float32, 1),
+    ("foam_gen", "foam_gen", torch.float32, 1),
+    ("foam_vel_ref", "foam_vel_ref", torch.float32, 1),
+    ("ghost_face_active", "face_active", torch.int32, 6),
+)
+
+
+def _params_arg(params: FluidParams, dev: torch.device):
+    """The kernel's params: the pointers of the FluidParams tensors, read
+    when the kernel runs, and of the trefoil's samples."""
+    arg = native.ContainerParamsC()
+    for field, name, dtype, numel in _PARAM_FIELDS:
+        t = getattr(params, field)
+        if t.device != dev or t.dtype != dtype or t.numel() != numel \
+                or not t.is_contiguous():
+            raise ValueError(f"params.{field}: {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, expected {numel} contiguous "
+                             f"{dtype} on {dev}")
+        setattr(arg, name, t.data_ptr())
+    arg.trefoil = constant(_TREFOIL_ROWS, torch.float32, dev).data_ptr()
+    return arg
+
+
+def container_pass(state: ParticleState, params: FluidParams,
+                   sweep: Optional[Tuple[torch.Tensor, ...]] = None,
+                   ghosts: bool = False, contain: bool = True
+                   ) -> ParticleState:
+    """One launch of ``csrc/container.cu`` over the rows of ``state`` (CUDA
+    tensors).  With ``sweep`` = ``(rho, pres, npos, nvel, acc)``, the cell
+    engine's sweep outputs for these rows, it first reassembles them as
+    ``neighbors.sweeps.reassemble_plain`` does (the ghost rows too when
+    ``ghosts``); with ``contain`` it applies the container to the rows as
+    :func:`apply_container_plain` does.  The columns it writes are new
+    tensors; the others are passed through as the plain versions pass
+    them.  Raises ``ValueError`` on tensors that are not on one CUDA
+    card."""
+    dev = state.pos.device
+    if dev.type != "cuda":
+        raise ValueError(f"the container pass takes CUDA tensors, got {dev}")
+    reassemble = sweep is not None
+    if not (reassemble or contain):
+        raise ValueError("the container pass reassembles, contains or both")
+    n = state.n
+    rows = native.ContainerRowsC()
+
+    def read(name, t):
+        """Check the column ``name`` and point the kernel at it: the int32
+        ones contiguous, a float32 one with its row stride (a [n, 3] one
+        with the three words of a row together, as the emitted rows')."""
+        if name in ("ghost", "valid", "face"):
+            native.check_tensor(name, t, torch.int32, (n,), dev)
+        else:
+            wide = name in ("pos", "vel", "acc", "npos", "nvel", "nacc")
+            shape = (n, 3) if wide else (n,)
+            if t.device != dev or t.dtype != torch.float32 \
+                    or tuple(t.shape) != shape:
+                raise ValueError(f"{name}: {t.dtype} {tuple(t.shape)} on "
+                                 f"{t.device}, expected float32 {shape} on "
+                                 f"{dev}")
+            if wide and n > 0 and t.stride(1) != 1:
+                raise ValueError(f"{name}: the three words of a row do not "
+                                 f"lie together")
+            setattr(rows, f"{name}_stride", t.stride(0))
+        setattr(rows, name, t.data_ptr())
+
+    read("ghost", state.ghost)
+    read("valid", state.valid)
+    out = {}
+    if reassemble:
+        rho, pres, npos, nvel, acc = sweep
+        for name, t in (("foam", state.foam), ("npos", npos),
+                        ("nvel", nvel), ("rho", rho)):
+            read(name, t)
+        # as reassemble_plain passes them through
+        out.update(pos=npos, vel=nvel, acc=acc, density=rho, pressure=pres)
+        written = ["foam"]
+        if ghosts:
+            for name, t in (("face", state.face), ("vel", state.vel),
+                            ("acc", state.acc), ("density", state.density),
+                            ("pressure", state.pressure), ("nacc", acc),
+                            ("pres", pres)):
+                read(name, t)
+            written += ["vel", "acc", "density", "pressure"]
+    else:
+        read("pos", state.pos)
+        read("vel", state.vel)
+        written = []
+    if contain:
+        written += ["pos", "vel"]
+    for name in dict.fromkeys(written):
+        shape = (n, 3) if name in ("pos", "vel", "acc") else (n,)
+        out[name] = torch.empty(shape, dtype=torch.float32, device=dev)
+        setattr(rows, f"out_{name}", out[name].data_ptr())
+    err = native.library().sph_container(
+        ctypes.byref(rows), ctypes.byref(_params_arg(params, dev)), n,
+        int(params.shape_type), int(reassemble), int(contain), int(ghosts),
+        torch.cuda.current_stream(dev).cuda_stream)
+    native.launched(LAUNCHES, "container", err)
+    return state.replace(**out)
 
 
 # ---------------------------------------------------------------------------

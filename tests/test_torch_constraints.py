@@ -3,10 +3,16 @@
 ``sph_tpu`` on the same numpy inputs: each projector and ``apply_container``
 for every shape under two rotations, the analytic cases of
 ``tests/test_constraints.py``, ``effective_half`` and the cell keys for
-every shape, the heightfield and the channel.
+every shape, the heightfield and the channel; the cell engine's substep,
+which applies the container in the pass that reassembles its sweeps'
+outputs, against reassembly and then ``apply_container``, for every shape
+with and without ghosts; the container pass's wrappers on other devices
+and its launch count on the CPU.
 
 CUDA (marker ``cuda``, skipped without a card): the same functions on CUDA
-tensors against the CPU.  The inputs are built with the port's own numpy
+tensors against the CPU, the container kernel (``csrc/container.cu``)
+alone and inside the reassembly pass, for every shape under both
+rotations.  The inputs are built with the port's own numpy
 code (its spawn and terrain are the JAX package's, bit for bit) and JAX is
 imported inside the tests that compare with it, so the CUDA tests also run
 where JAX is not installed:
@@ -22,8 +28,11 @@ import torch
 from sph_tpu_torch.core import params as TP
 from sph_tpu_torch.core import state as TS
 from sph_tpu_torch.core.convert import state_from_numpy
+from sph_tpu_torch.engine import step as TSTEP
+from sph_tpu_torch.neighbors import sweeps
 from sph_tpu_torch.physics import constraints as TC
 from sph_tpu_torch.scene import river as TRV
+from sph_tpu_torch.utils import trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -385,6 +394,102 @@ def test_apply_channel_matches_jax(seed):
     assert torch.equal(got.vel[fixed], ts.vel[fixed])
 
 
+# --- the container inside the cell engine's substep -------------------------
+
+SUBSTEP_SCALE = 0.4     # the shapes of HALVES at 0.4x: a few hundred rows
+
+
+def substep_case(shape, ghosts, device="cpu"):
+    """(state, params, config) of the cell engine in ``shape`` at
+    ``SUBSTEP_SCALE`` of its half extents, tilted: 400 asked rows pushed
+    15% out from the center, so that the container moves some, with random
+    velocities; with ``ghosts``, the ghost shell of the effective box
+    around it, faces +Y and -Z inactive."""
+    half = (np.asarray(HALVES[shape], np.float32)
+            * np.float32(SUBSTEP_SCALE))
+    euler = ROTATIONS["tilted"]
+    spawn = TS.spawn_standard(400, h=0.28, box_half=half, shape_type=shape,
+                              seed=3 + shape, box_center=CENTER,
+                              box_euler_deg=euler, spawn_rotation="local")
+    c = np.asarray(CENTER, np.float32)
+    spawn.pos = (c + (spawn.pos - c) * np.float32(1.15)).astype(np.float32)
+    spawn.vel = (np.random.default_rng(shape).standard_normal(
+        spawn.pos.shape) * 2.0).astype(np.float32)
+    if ghosts:
+        spawn = TS.concat_spawns(spawn, TS.spawn_ghost_box_shell(
+            h=0.28, box_center=CENTER,
+            box_half=TP.effective_half_np(shape, half)))
+    state = TS.state_from_spawn(spawn, device=device)
+    params = TP.FluidParams.default(
+        device=device, ghost_face_active=(1, 1, 1, 0, 0, 1),
+        **{**params_kw(shape, euler), "box_half": half}).derive_mass()
+    dims = TP.compute_grid_dims(shape, half, euler, 0.28)
+    return state, params, TP.SimConfig(n=state.n, grid_dims=dims)
+
+
+def assert_states_equal(got, want):
+    for f in dataclasses.fields(want):
+        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), \
+            f.name
+
+
+@pytest.mark.parametrize("ghosts", [False, True], ids=["fluid", "ghosts"])
+@pytest.mark.parametrize("shape", SHAPES, ids=TP.SHAPE_NAMES)
+def test_cell_substep_contains_once_as_reassembly_then_container(shape,
+                                                                 ghosts):
+    """``engine.step.substep`` on the cell engine applies the container in
+    its solve and not again in ``scene_stages``: bit for bit the sweeps'
+    reassembly and then ``apply_container``, which moves some rows."""
+    state, params, cfg = substep_case(shape, ghosts)
+    assert bool((state.ghost > 0).any()) == ghosts
+    buf = TSTEP.SceneBuffers.create(cfg, device="cpu")
+    aux = TSTEP.neighbor_aux(state, params, params.dt, cfg)
+    got, got_buf = TSTEP.substep(state, params, buf, params.dt, cfg, aux=aux)
+    solved = sweeps.substep(state, params, params.dt, cfg, aux=aux)
+    want = TC.apply_container(solved, params)
+    assert_states_equal(got, want)
+    assert got_buf == buf
+    moved = (want.pos != solved.pos).any(-1)
+    assert int(moved.sum()) > 5
+    assert not bool(moved[solved.ghost > 0].any())
+
+
+@pytest.mark.parametrize("call", ["apply_container", "reassemble",
+                                  "reassemble_contain"])
+def test_container_wrappers_reject_other_devices(call):
+    """A device that is neither the CPU nor CUDA raises ``ValueError``."""
+    st = TS.ParticleState.zeros(8, device="meta")
+    tp = TP.FluidParams.default(device="meta")
+    sweep = (st.density, st.pressure, st.pos, st.vel, st.acc)
+    run = {"apply_container": lambda: TC.apply_container(st, tp),
+           "reassemble": lambda: sweeps.reassemble(st, *sweep, tp),
+           "reassemble_contain": lambda: sweeps.reassemble(
+               st, *sweep, tp, ghosts=True, contain=True)}[call]
+    with pytest.raises(ValueError, match="meta"):
+        run()
+
+
+@pytest.mark.parametrize("path", ["apply_container", "reassemble",
+                                  "run_substeps"])
+def test_container_launches_stay_zero_on_cpu(path):
+    """``launches.container`` is in ``trace.counters()`` and counts no
+    launch on the CPU, where the plain versions run."""
+    TC.reset_launches()
+    state, params, cfg = substep_case(TP.SHAPE_BOX, True)
+    if path == "apply_container":
+        out = TC.apply_container(state, params)
+    elif path == "reassemble":
+        out = sweeps.reassemble(state, state.density, state.pressure,
+                                state.pos, state.vel, state.acc, params,
+                                ghosts=True, contain=True)
+    else:
+        out, _ = TSTEP.run_substeps(
+            state, params, TSTEP.SceneBuffers.create(cfg, device="cpu"),
+            params.dt, 2, cfg)
+    assert out.pos.device.type == "cpu"
+    assert trace.counters()["launches.container"] == 0
+
+
 # --- on the card --------------------------------------------------------------
 
 @pytest.fixture
@@ -396,15 +501,21 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rotation", list(ROTATIONS))
 @pytest.mark.parametrize("shape", SHAPES, ids=TP.SHAPE_NAMES)
-def test_constraints_on_cuda_match_cpu(cuda, shape):
-    """``apply_container`` of every shape, and the terrain and the channel,
-    on CUDA tensors against the CPU."""
-    d = scattered(shape, ROTATIONS["tilted"])
-    out = {str(dev): TC.apply_container(
-        state_from_numpy(d, device=dev),
-        port_params(shape, ROTATIONS["tilted"], device=dev))
-        for dev in (cuda, "cpu")}
+def test_constraints_on_cuda_match_cpu(cuda, shape, rotation):
+    """``apply_container`` of every shape under both rotations (the
+    container kernel, one launch), and the terrain and the channel, on CUDA
+    tensors against the CPU."""
+    d = scattered(shape, ROTATIONS[rotation])
+    TC.reset_launches()
+    out = {}
+    for dev in (cuda, "cpu"):
+        out[str(dev)] = TC.apply_container(
+            state_from_numpy(d, device=dev),
+            port_params(shape, ROTATIONS[rotation], device=dev))
+        torch.cuda.synchronize()
+    assert TC.LAUNCHES == {"container": 1}
     assert out["cuda"].pos.device.type == "cuda"
     close(out["cuda"].pos.cpu(), out["cpu"].pos, 1e-5, "pos")
     close(out["cuda"].vel.cpu(), out["cpu"].vel, 1e-4, "vel")
@@ -416,3 +527,57 @@ def test_constraints_on_cuda_match_cpu(cuda, shape):
                                            tp.dt)
     close(river["cuda"].pos.cpu(), river["cpu"].pos, 1e-5, "river pos")
     close(river["cuda"].vel.cpu(), river["cpu"].vel, 1e-4, "river vel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ghosts", [False, True], ids=["fluid", "ghosts"])
+@pytest.mark.parametrize("rotation", list(ROTATIONS))
+@pytest.mark.parametrize("shape", SHAPES, ids=TP.SHAPE_NAMES)
+def test_cell_substep_with_container_on_cuda_matches_cpu(cuda, shape,
+                                                         rotation, ghosts):
+    """The cell engine's substep, whose reassembly and container are one
+    launch of the container kernel on the card, against the plain versions
+    on the CPU, for every shape under both rotations, within the sweep
+    kernels' tolerances (``tests/test_torch_sweeps.py``)."""
+    euler = ROTATIONS[rotation]
+    TC.reset_launches()
+    out = {}
+    for dev in (cuda, "cpu"):
+        state, params, cfg = substep_case(shape, ghosts, device=dev)
+        params = params.replace(box_euler_deg=torch.as_tensor(
+            np.asarray(euler, np.float32), device=dev))
+        st, _ = TSTEP.substep(state, params,
+                              TSTEP.SceneBuffers.create(cfg, device=dev),
+                              params.dt, cfg)
+        torch.cuda.synchronize()
+        order = torch.argsort(st.orig_id)
+        out[str(dev)] = {f: getattr(st, f)[order].cpu()
+                         for f in ("pos", "vel", "density", "foam")}
+    assert TC.LAUNCHES == {"container": 1}
+    got, want = out["cuda"], out["cpu"]
+    close(got["pos"], want["pos"], 1e-5, "pos")
+    close(got["vel"], want["vel"], 1e-3, "vel")
+    torch.testing.assert_close(got["density"], want["density"], rtol=1e-5,
+                               atol=1e-2)
+    close(got["foam"], want["foam"], 1e-4, "foam")
+
+
+@pytest.mark.cuda
+def test_container_pass_checks_inputs_on_cuda(cuda):
+    """The container pass's wrapper raises ``ValueError`` on what its
+    kernel does not take, before it launches."""
+    d = scattered(TP.SHAPE_BOX, ROTATIONS["upright"])
+    st = state_from_numpy(d, device=cuda)
+    tp = port_params(TP.SHAPE_BOX, device=cuda)
+    TC.reset_launches()
+    bad = {"rows apart": st.replace(pos=st.pos.t().contiguous().t()),
+           "dtype": st.replace(vel=st.vel.double()),
+           "shape": st.replace(valid=st.valid[:-1]),
+           "device": st.replace(ghost=st.ghost.cpu())}
+    for name, s in bad.items():
+        with pytest.raises(ValueError):
+            TC.apply_container(s, tp)
+    with pytest.raises(ValueError, match="box_half"):
+        TC.apply_container(st, tp.replace(box_half=tp.box_half.double()))
+    torch.cuda.synchronize()
+    assert TC.LAUNCHES == {"container": 0}

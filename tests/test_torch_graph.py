@@ -322,17 +322,21 @@ def test_graph_per_substep_count_on_cuda(cuda):
 
 @pytest.mark.cuda
 def test_launch_counts_after_replays_on_cuda(cuda):
-    from sph_tpu_torch.physics import brute_kernels
+    from sph_tpu_torch.physics import brute_kernels, constraints
+    # the container pass: inside the cell engine's reassembly, in the scene
+    # stages of the all-pairs kernels; one launch a substep either way
     for case, per_sub in (("ghosts", {"cell_table": 1, "density": 1,
-                                      "force_xsph": 1}),
+                                      "force_xsph": 1, "container": 1}),
                           ("brute_kernel", {"brute_density": 1,
-                                            "brute_force": 1})):
+                                            "brute_force": 1,
+                                            "container": 1})):
         state, params, cfg, buf = port_case(case, cuda)
-        for mod in (cells, sweeps, brute_kernels):
+        for mod in (cells, sweeps, brute_kernels, constraints):
             mod.reset_launches()
         frames(TSTEP.run_substeps, state, params, cfg, buf, n_frames=3)
         counts = {**cells.LAUNCHES, **sweeps.LAUNCHES,
-                  **brute_kernels.LAUNCHES}
+                  **brute_kernels.LAUNCHES, **constraints.LAUNCHES}
+        assert trace.counters()["launches.container"] == 3 * N_SUB
         want = dict.fromkeys(counts, 0)
         want.update({k: 3 * N_SUB * v for k, v in per_sub.items()})
         if case == "ghosts":        # the ghosts' table, once a frame

@@ -12,7 +12,10 @@ and the force kernel's source records (``pack_sources``,
 ``density_sources``) against the same oracle.
 
 CUDA (marker ``cuda``, skipped without a card): each kernel against its
-plain version.  JAX is imported inside the fixtures that need it, so the
+plain version; the container pass (``csrc/container.cu``) in its three
+modes, reassembly, container and both, bit-identical to the plain torch
+ops on the card for a box at zero angles, with and without ghosts, from
+separate output columns and from the emitted rows.  JAX is imported inside the fixtures that need it, so the
 CUDA tests also run where JAX is not installed:
 
     python -m pytest tests/test_torch_sweeps.py -q -m cuda --noconftest
@@ -27,6 +30,7 @@ from sph_tpu_torch.core import params as TP
 from sph_tpu_torch.core import state as TS
 from sph_tpu_torch.core.params import SimConfig
 from sph_tpu_torch.neighbors import cells, sweeps
+from sph_tpu_torch.physics import constraints
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -481,6 +485,82 @@ def test_emit_rows_bit_identical_to_gather_on_cuda(cuda, case):
                                "force_xsph_emit": 5}
     for f in STATE_FIELDS:
         assert torch.equal(getattr(emit, f), getattr(gather, f)), f
+
+
+def reassembly_inputs(device, ghosts, emit, n=6000, seed=11):
+    """A state and the sweeps' outputs for it, made up row by row on
+    ``device``: positions over 1.3x a box of half 3 (every face and corner
+    hit), densities about rho0 and speeds up to the foam's reference (foam
+    on most fluid rows), 5% padding; with ``ghosts`` a tenth of the rows are
+    ghosts on the six faces, +Y and -Z inactive.  With ``emit`` the sweeps'
+    columns are views of one [n, 16] buffer, as the emitted-row transport
+    hands them over.  Returns (state, (rho, pres, npos, nvel, acc), params)."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=np.float32):
+        return torch.as_tensor(np.asarray(a, dtype), device=device)
+
+    def vec(scale):
+        return rng.standard_normal((n, 3)) * scale
+
+    ghost = (rng.uniform(size=n) < 0.1) if ghosts else np.zeros(n, bool)
+    state = TS.ParticleState.zeros(n, device=device).replace(
+        pos=t(rng.uniform(-3.9, 3.9, (n, 3))), vel=t(vec(4.0)),
+        acc=t(vec(900.0)), density=t(rng.uniform(500.0, 1500.0, n)),
+        pressure=t(rng.uniform(0.0, 1e6, n)), foam=t(rng.uniform(0, 0.2, n)),
+        ghost=t(ghost, np.int32),
+        face=t(np.where(ghost, rng.integers(0, 6, n), -1), np.int32),
+        valid=t(rng.uniform(size=n) > 0.05, np.int32))
+    cols = [rng.uniform(-3.9, 3.9, (n, 3)), vec(4.0), vec(900.0),
+            rng.uniform(400.0, 1600.0, (n, 1))]
+    if emit:
+        per = t(np.concatenate(cols + [np.zeros((n, 6))], 1))
+        npos, nvel, acc, rho = per[:, 0:3], per[:, 3:6], per[:, 6:9], per[:, 9]
+    else:
+        npos, nvel, acc, rho = (t(c) for c in cols[:3] + [cols[3][:, 0]])
+    pres = t(rng.uniform(0.0, 1e6, n))
+    params = TP.FluidParams.default(
+        device=device, box_half=np.full(3, 3.0, np.float32),
+        ghost_face_active=(1, 1, 1, 0, 0, 1), wall_restitution=0.3,
+        wall_friction=0.1, foam_vel_ref=4.0).derive_mass()
+    return state, (rho, pres, npos, nvel, acc), params
+
+
+def assert_same_state(got, want):
+    for f in dataclasses.fields(want):
+        g, w = getattr(got, f.name), getattr(want, f.name)
+        assert torch.equal(g, w), (f.name, int((g != w).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("emit", [False, True], ids=["columns", "emitted"])
+@pytest.mark.parametrize("ghosts", [False, True], ids=["fluid", "ghosts"])
+def test_container_pass_bit_identical_to_torch_ops_on_cuda(cuda, ghosts,
+                                                          emit):
+    """Reassembly alone, the container alone and both in one launch: each
+    the plain torch ops on the same CUDA tensors, bit for bit (a box at
+    zero Euler angles, whose rotation is exactly the identity)."""
+    state, sweep, params = reassembly_inputs(cuda, ghosts, emit)
+    constraints.reset_launches()
+    ra = sweeps.reassemble(state, *sweep, params, ghosts=ghosts)
+    torch.cuda.synchronize()
+    rp = sweeps.reassemble_plain(state, *sweep, params, ghosts=ghosts)
+    assert_same_state(ra, rp)
+    ca = constraints.apply_container(rp, params)
+    torch.cuda.synchronize()
+    cp = constraints.apply_container_plain(rp, params)
+    assert_same_state(ca, cp)
+    both = sweeps.reassemble(state, *sweep, params, ghosts=ghosts,
+                             contain=True)
+    torch.cuda.synchronize()
+    assert_same_state(both, cp)
+    assert constraints.LAUNCHES == {"container": 3}
+    fluid = state.fluid_mask()
+    # the cases reach what they claim: foam on fluid rows, rows moved
+    assert int((rp.foam > state.foam * 0.995)[fluid].sum()) > 1000
+    assert int(((cp.pos != rp.pos).any(-1) & fluid).sum()) > 1000
+    if ghosts:
+        assert int((rp.density == 1000.0).sum()) > 300
 
 
 # ---------------------------------------------------------------------------

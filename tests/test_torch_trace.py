@@ -177,8 +177,8 @@ def test_counters_count_the_frame_paths_waits_and_builds(case):
     assert trace.counter("test.counter") == 3
     assert trace.counter("never.counted") == 0
     assert {"launches.cell_table", "launches.density", "launches.force_xsph",
-            "launches.force_xsph_emit", "launches.brute_density",
-            "launches.brute_force"} <= set(got)
+            "launches.force_xsph_emit", "launches.container",
+            "launches.brute_density", "launches.brute_force"} <= set(got)
 
 
 def test_reset_clears_counters_totals_and_launch_counts():
