@@ -22,7 +22,14 @@ matched by ``orig_id``.  The numbers compared, each against its limit in
   and moving, so in a settled cell it reads 0 on both sides and a cell
   whose readings never aerate leaves it out of its limits;
 - ``order_breaks``: rows of the port's output that follow a row the
-  reference's stable sort puts after them;
+  reference's stable sort puts after them, counted over every row but the
+  fluid rows that lie, in the reference's output, within the row tolerance
+  for positions of a plane between two cells (in the box's frame).  The
+  check lets such a row's position differ by that much, so it may sit in
+  either cell and anywhere in the sort.  A row resting on a wall is one:
+  the grid starts one h outside the walls, and in a rotated box the last
+  bit of its box-local coordinate, which rounding anywhere in the substep
+  moves, picks its cell;
 - ``px_apart`` (export only): the share of the frame's pixels where a
   channel differs by more than one level between the port's image and the
   reference's image of the port's own output state, for each sampled frame
@@ -64,20 +71,33 @@ def _max(x: torch.Tensor) -> float:
     return float(x.max()) if x.numel() else 0.0
 
 
+def order_breaks(out: sph.State, ref: sph.State, frame: sph.Frame,
+                 tol: float) -> float:
+    """Rows of ``out`` that follow a row that ``ref`` puts after them, over
+    the rows but the fluid rows of ``ref`` within ``tol`` of a plane
+    between two of ``frame``'s cells."""
+    fluid = (ref["valid"] > 0) & (ref["ghost"] == 0)
+    loose = torch.empty_like(fluid)
+    loose[ref["orig_id"].long()] = fluid & (
+        frame.cell_plane_gap(ref["pos"]) <= tol)
+    rank = torch.empty_like(ref["orig_id"], dtype=torch.long)
+    rank[ref["orig_id"].long()] = torch.arange(len(rank), device=rank.device)
+    ids = out["orig_id"].long()
+    seq = rank[ids[~loose[ids]]]
+    return float((seq[1:] < seq[:-1]).sum())
+
+
 def compare_states(out: sph.State, ref: sph.State, tol: Dict[str, float],
-                   box_half=None) -> Numbers:
+                   frame: sph.Frame, box_half=None) -> Numbers:
     """The numbers of one frame's output ``out`` against the reference's
-    ``ref`` (both [N] rows of the same ids); ``tol`` holds each row's
-    tolerance for ``pos`` and ``vel``.  With ``box_half``, also the
-    distance from the box's nearest face of the row with the widest
-    velocity gap (a reading for the look at the gaps, compared with no
-    limit)."""
+    ``ref`` (both [N] rows of the same ids, ``ref`` from ``frame``);
+    ``tol`` holds each row's tolerance for ``pos`` and ``vel``.  With
+    ``box_half``, also the distance from the box's nearest face of the row
+    with the widest velocity gap (a reading for the look at the gaps,
+    compared with no limit)."""
     out = {k: v.to(ref["pos"].device) for k, v in out.items()}
     a, b = _aligned(out), _aligned(ref)
     rows = torch.nonzero(b["valid"] > 0).squeeze(1)
-    rank = torch.empty_like(ref["orig_id"], dtype=torch.long)
-    rank[ref["orig_id"].long()] = torch.arange(len(rank), device=rank.device)
-    seq = rank[out["orig_id"].long()]
     dpos = _row_gaps(a["pos"], b["pos"], rows)
     dvel = _row_gaps(a["vel"], b["vel"], rows)
     # a NaN row counts as apart; the widest gaps of position, velocity and
@@ -88,7 +108,7 @@ def compare_states(out: sph.State, ref: sph.State, tol: Dict[str, float],
             "foam_gap": _max(_row_gaps(a["foam"], b["foam"], rows)),
             "pos_apart": float((~(dpos <= tol["pos"])).float().mean()),
             "vel_apart": float((~(dvel <= tol["vel"])).float().mean()),
-            "order_breaks": float((seq[1:] < seq[:-1]).sum())}
+            "order_breaks": order_breaks(out, ref, frame, tol["pos"])}
     if box_half is not None and len(rows):
         half = torch.tensor(box_half, dtype=torch.float32,
                             device=dvel.device)
@@ -157,7 +177,8 @@ def frame_numbers(cfg: dict, traffic: dict, tol: Dict[str, float], samples,
     for i, (inp, out, img) in enumerate(samples):
         ref = frame.run(inp, n)
         nums = compare_states(low.run(inp, n) if control else out, ref,
-                              tol, cfg["box_half"] if diagnose else None)
+                              tol, frame,
+                              cfg["box_half"] if diagnose else None)
         del ref
         if export:
             # the frame of the port's own output state: the render is

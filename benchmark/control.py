@@ -31,6 +31,7 @@ from benchmark.run import Run, log
 FAULTS = {
     "face": "the ghosts of the box's +x face switched off in the port",
     "foam": "each frame's foam left as it came in",
+    "prologue": "the configuration's frame prologue skipped in the port",
 }
 
 
@@ -51,6 +52,10 @@ def plant(system, fault: str) -> None:
         system.params.ghost_face_active[1] = 0
     elif fault == "foam":
         system.frame = _foam_unchanged(system.frame)
+    elif fault == "prologue":
+        if system.wave is None:
+            raise ValueError("the configuration has no frame prologue")
+        system.prologue = lambda state: state
     else:
         raise ValueError(f"unknown fault {fault!r}; the faults: "
                          f"{', '.join(FAULTS)}")

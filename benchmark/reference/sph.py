@@ -22,11 +22,17 @@ Jacobi split of the JAX package:
    gravity, semi-implicit Euler with damping, XSPH against the stale
    sources, the CFL speed cap;
 4. reassembly: foam, and the ghosts' fixed values;
-5. the box container with restitution and friction.
+5. the box container, rotated or not, with restitution and friction.
 
-``low=True`` rounds the inputs of every matrix product (the keys' and the
-container's transforms) to TF32, 10 bits of mantissa, as a tensor core
-takes them: the control of the output check.
+Where the configuration names a ``frame_prologue``, a frame starts with it,
+once, before its substeps: the wave kick (``Scene0p.cpp:1303-1307``),
+v += d A sin(2 pi / lambda (p . d) + phase) on the live fluid rows, d the
+direction normalised and A = strength dt substeps (dt-premultiplied, a
+frame of substeps standing in for one reference frame).
+
+``low=True`` rounds the inputs of every matrix product (the keys', the
+container's and the wave's transforms) to TF32, 10 bits of mantissa, as a
+tensor core takes them: the control of the output check.
 """
 from __future__ import annotations
 
@@ -76,6 +82,38 @@ def rotation(euler_deg) -> np.ndarray:
     rz = np.array([[math.cos(z), -math.sin(z), 0],
                    [math.sin(z), math.cos(z), 0], [0, 0, 1]])
     return (rz @ ry @ rx).astype(np.float32)
+
+
+def rotation32(euler_deg, device) -> torch.Tensor:
+    """``rotation`` as a float32 program works it out: the degrees and
+    pi / 180 in float32, their product's cosines and sines in float32, and
+    ``Rz @ Ry @ Rx`` as two float32 matrix products.  The frame's keys and
+    container use it: a row resting on a wall lies on a cell boundary (the
+    grid starts one h outside the walls), so the last bit of R picks its
+    cell, its place in the stable sort and the order of its pair sums.  At
+    zero angles it is the identity, as ``rotation`` is."""
+    rad = torch.tensor(euler_deg, dtype=torch.float32,
+                       device=device) * (math.pi / 180.0)
+    c, s = torch.cos(rad), torch.sin(rad)
+
+    def about(axis: int, i: int, j: int) -> torch.Tensor:
+        r = torch.eye(3, dtype=torch.float32, device=device)
+        r[i, i], r[i, j], r[j, i], r[j, j] = c[axis], -s[axis], s[axis], \
+            c[axis]
+        return r
+
+    return about(2, 0, 1) @ about(1, 2, 0) @ about(0, 1, 2)
+
+
+def wave_prologue(cfg: dict):
+    """The configuration's ``frame_prologue``, the wave kick, or None where
+    it names none; the one check of its ``kind`` for the port's side and
+    the reference's."""
+    w = cfg.get("frame_prologue")
+    if w is not None and w.get("kind") != "wave":
+        raise ValueError(f"frame_prologue kind {w.get('kind')!r}; the "
+                         f"harness runs 'wave'")
+    return w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -151,7 +189,7 @@ class Frame:
         p = self.p
         f = lambda v: torch.tensor(v, dtype=torch.float32,  # noqa: E731
                                    device=self.dev)
-        self.rot = torch.as_tensor(rotation(p.box_euler_deg), device=self.dev)
+        self.rot = rotation32(p.box_euler_deg, self.dev)
         self.center = f(p.box_center)
         self.half = f(p.box_half)
         self.gmin = -(self.half + f(p.h))
@@ -167,6 +205,13 @@ class Frame:
         self.spiky = float(-45.0 / (PI * h ** 6))
         self.visc_lap = float(45.0 / (PI * h ** 6))
         self.rho_floor = float(np.float32(DENSITY_FLOOR_FRAC * p.rho0))
+        self.wave = wave_prologue(cfg)
+        if self.wave is not None:
+            d = f(self.wave["direction"])
+            norm = torch.sqrt(torch.sum(d * d))
+            if not float(norm) > 0.0:
+                raise ValueError("the wave's direction is zero")
+            self.wave_dir = d / norm
 
     # -- neighbour structure ------------------------------------------------
     def keys(self, pos: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -178,6 +223,13 @@ class Frame:
         nx, ny, nz = self.p.dims
         key = c[:, 0] + nx * (c[:, 2] + nz * c[:, 1])
         return torch.where(mask, key, torch.full_like(key, self.p.num_cells))
+
+    def cell_plane_gap(self, pos: torch.Tensor) -> torch.Tensor:
+        """Each row's distance from the nearest plane between two cells of
+        the grid, in the box's frame (in full precision)."""
+        local = (pos - self.center[None, :]) @ self.rot
+        u = (local - self.gmin[None, :]) / self.p.h
+        return ((u - torch.round(u)).abs() * self.p.h).amin(dim=1)
 
     def ranges(self, skey: torch.Tensor):
         cells = torch.arange(self.p.num_cells, dtype=skey.dtype,
@@ -410,8 +462,21 @@ class Frame:
         return dict(st, pos=torch.where(live, new_pos, st["pos"]),
                     vel=torch.where(live, new_vel, st["vel"]))
 
+    # -- the frame's prologue -----------------------------------------------
+    def kick(self, st: State, n_substeps: int) -> State:
+        """The wave kick of a frame of ``n_substeps`` substeps."""
+        w, d = self.wave, self.wave_dir
+        amplitude = float(w["strength"]) * self.p.dt * n_substeps
+        k = 2.0 * math.pi / float(w["wavelength"])
+        theta = k * matmul(st["pos"], d, self.low) + float(w["phase"])
+        dv = (amplitude * torch.sin(theta))[:, None] * d[None, :]
+        live = ((st["ghost"] == 0) & (st["valid"] > 0))[:, None]
+        return dict(st, vel=st["vel"] + torch.where(live, dv, 0.0))
+
     def run(self, st: State, n_substeps: int) -> State:
         st = {k: st[k].to(self.dev) for k in FIELDS}
+        if self.wave is not None:
+            st = self.kick(st, n_substeps)
         for _ in range(n_substeps):
             st = self.substep(st)
         return st

@@ -8,8 +8,9 @@ seed (``spawn.py``), builds the port for its configuration
 (``system.py``), warms up the cell's one frame shape (the first frame
 captures the frame program, the next replay it), then measures a closed
 loop of frames, one client, back to back, for ``--seconds``: each frame
-runs the traffic's substeps and waits for the card, then exports the
-state as a PNG where the traffic says so.
+runs the configuration's prologue where it names one, the traffic's
+substeps, and waits for the card, then exports the state as a PNG where
+the traffic says so.
 
 With ``--trace 0`` it reports the cell's end-to-end metrics:
 ``particle_steps_per_s`` (fluid rows times the substeps of every frame
@@ -19,7 +20,10 @@ frame's wall time) and ``setup_s`` (process start to the end of the
 warm-up, the last work before the window: the card's clocks are read
 between the two).  With ``--trace 1`` the first ``trace_frames`` frames
 of the window run under ``torch.profiler`` and it reports the cell's
-per-layer metrics, each read by ``metrics/<name>.py`` from that slice.
+per-layer metrics, each read by ``metrics/<name>.py`` from that slice:
+the run switches the port's own spans on (from before the warm-up, so
+the window runs what the warm-up ran) and hands the slice the port's
+counters as they moved over its frames and over the whole window.
 
 After the window, a sample of its frames drawn from the seed is held to
 the plain reference (``check.py``), and the numbers compared are printed
@@ -100,7 +104,8 @@ def foreign(modules) -> list:
 class Run:
     """One cell's system and its frames on one device."""
 
-    def __init__(self, cell: cells.Cell, seed: int, device):
+    def __init__(self, cell: cells.Cell, seed: int, device,
+                 traced: bool = False):
         from benchmark.system import System
         self.cell, self.seed = cell, seed
         self.cfg, self.traffic = cell.config, cell.traffic
@@ -115,6 +120,7 @@ class Run:
         self.fluid = int((self.rows["ghost"] == 0).sum())
         self.system = System(self.cfg, self.traffic, self.rows, self.device)
         self.build_s = self.system.build()
+        self.system.trace(traced)
         self.png = os.path.join(tempfile.gettempdir(),
                                 f"benchmark-{cell.name}.png")
         self.spans = trace.Spans()
@@ -122,6 +128,9 @@ class Run:
     def frame(self, state):
         """One frame of the traffic; (new state, image or None)."""
         sp, sysm = self.spans, self.system
+        if sysm.wave is not None:
+            with sp("frame.prologue"):
+                state = sysm.prologue(state)
         with sp("frame.substeps"):
             out = sysm.frame(state)
         with sp("frame.sync"):
@@ -150,10 +159,23 @@ class Run:
         """Frames back to back until ``seconds`` have passed (one at
         least); the frames' wall times, the frames to check (a sample of
         ``check_frames`` drawn from the seed, and the last), and the
-        profiler with its frames when ``trace_frames``."""
+        profiler with its frames, and the port's counters' moves over
+        them, when ``trace_frames``; the counters' moves over the whole
+        window."""
         sample = window.Reservoir(check_frames, self.seed)
         durations = []
-        prof, traced, traced_state = None, 0, None
+        prof, traced, traced_state, before, counted = None, 0, None, {}, None
+
+        def moved(since):
+            return {k: v - since.get(k, 0)
+                    for k, v in self.system.counters().items()}
+
+        def stop():
+            out = moved(before)
+            prof.__exit__(None, None, None)
+            self.spans.record = False
+            return out
+
         if trace_frames:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.system.cuda:
@@ -161,6 +183,8 @@ class Run:
             prof = torch.profiler.profile(activities=acts)
             prof.__enter__()
             self.spans.record = True
+            before = self.system.counters()
+        at_start = self.system.counters()
         t_start = time.perf_counter()
         while True:
             t0 = time.perf_counter()
@@ -171,22 +195,22 @@ class Run:
             sample.offer(last)
             state = out
             if prof is not None and len(durations) == trace_frames:
-                prof.__exit__(None, None, None)
-                self.spans.record = False
+                counted = stop()
                 traced, traced_state = trace_frames, out
             if t_end - t_start >= seconds:
                 break
         if prof is not None and traced == 0:
-            prof.__exit__(None, None, None)
-            self.spans.record = False
+            counted = stop()
             traced, traced_state = len(durations), state
+        in_window = moved(at_start)
         # the sample, and the last frame, whose PNG is the file's
         picked = [item for _, item in sample.sample()]
         if picked[-1][1] is not state:
             picked.append(last)
         return {"durations": durations, "seconds": t_end - t_start,
                 "sample": picked, "state": state, "prof": prof,
-                "traced": traced, "traced_state": traced_state}
+                "traced": traced, "traced_state": traced_state,
+                "counters": counted, "window_counters": in_window}
 
     def check(self, sample, control: bool = False, diagnose: bool = False):
         """(worst numbers, frames out of limits) of the sampled frames;
@@ -221,7 +245,7 @@ def execute(cell: cells.Cell, seed: int, seconds: float, traced: bool,
     t0 = time.perf_counter()
     torch.empty(0, device=device)
     t_context = time.perf_counter() - t0
-    run = Run(cell, seed, device)
+    run = Run(cell, seed, device, traced)
     t_run = time.perf_counter() - t0 - t_context
     log(f"cell {cell.name}: {run.fluid} fluid rows, {len(run.rows['pos'])} "
         f"rows in all, seed {seed}, device {run.device}")
@@ -293,7 +317,9 @@ def per_layer(run: Run, w: dict, device_info: dict) -> dict:
               "num_cells": frame.p.num_cells}
     sl = trace.from_profiler(w["prof"], w["traced"],
                              int(cell.traffic["substeps"]), counts,
-                             lambda: pairs.count(frame, traced_state))
+                             lambda: pairs.count(frame, traced_state),
+                             counters=w["counters"],
+                             window_counters=w["window_counters"])
     path = os.path.join(tempfile.gettempdir(),
                         f"benchmark-{cell.name}-trace.json")
     w["prof"].export_chrome_trace(path)

@@ -90,11 +90,13 @@ def test_broken_substeps_are_caught(tiny_root, monkeypatch, fault):
     assert out["failed"] >= 1
 
 
-@pytest.mark.parametrize("fault", [None] + sorted(control.FAULTS))
+@pytest.mark.parametrize("fault", [None] + sorted(set(control.FAULTS)
+                                                  - {"prologue"}))
 def test_planted_faults_are_caught(tiny_root, monkeypatch, fault):
     """``control.FAULTS``, as ``python3 -m benchmark.control --fault``
     plants them on the card: one side face's ghosts off, foam left as it
-    came in.  Eight warm-up frames, so that the rows have spread to the
+    came in (the prologue's fault is planted in a cell with a prologue,
+    below).  Eight warm-up frames, so that the rows have spread to the
     side walls, as they have in a cell's window; the sound run with them
     is correct."""
     root = tiny_root()
@@ -117,6 +119,61 @@ def test_planted_faults_are_caught(tiny_root, monkeypatch, fault):
     assert not out["correct"]
     name = {"face": "pos_apart", "foam": "foam_gap"}[fault]
     assert out["checks"][name]["value"] > out["checks"][name]["limit"]
+
+
+WAVED = dict(fluid_rows=4096, box_half=[3.5, 3.5, 3.5],
+             box_euler_deg=[20.0, 0.0, 30.0],
+             frame_prologue={"kind": "wave", "strength": 60.0,
+                             "wavelength": 4.0, "phase": 0.7,
+                             "direction": [1.0, 0.0, 0.3]})
+
+
+def _waved_root(tiny_root, **changes):
+    """A rotated box with the wave prologue, ``rotated_512k``'s published
+    settings at 4,096 rows, under the limits of ``default_131k.sim16``."""
+    return tiny_root(config="default_131k", limits_of="default_131k.sim16",
+                     **dict(WAVED, **changes))
+
+
+@pytest.mark.parametrize("emit_rows", [False, True])
+def test_sound_rotated_waved_run_is_correct(tiny_root, monkeypatch,
+                                            emit_rows):
+    """The prologue runs once a frame, under its own span, and the
+    reference's frame starts with the same kick."""
+    kicks = []
+    real = system.System.prologue
+    monkeypatch.setattr(system.System, "prologue", lambda self, st: (
+        kicks.append(1), real(self, st))[1])
+    root = _waved_root(tiny_root, emit_rows=emit_rows)
+    cell = cells.load("tiny.sim16", root=root)
+    out = run.execute(cell, SEED, 0.3, False, "cpu")
+    assert out["correct"], out["checks"]
+    assert out["failed"] == 0
+    warm = int(cell.traffic["warmup_frames"])
+    assert len(kicks) == warm + out["attempted"]
+
+
+def test_skipped_prologue_is_caught(tiny_root, monkeypatch):
+    """``control.FAULTS["prologue"]``: the port's frames without their
+    wave kick, the reference's with it."""
+    real = system.System.__init__
+
+    def broken(self, *args, **kw):
+        real(self, *args, **kw)
+        control.plant(self, "prologue")
+    monkeypatch.setattr(system.System, "__init__", broken)
+    out = _run(_waved_root(tiny_root))
+    assert not out["correct"]
+    assert out["checks"]["vel_apart"]["value"] > \
+        out["checks"]["vel_apart"]["limit"]
+
+
+def test_prologue_fault_needs_a_prologue(tiny_root):
+    cell = cells.load("tiny.sim16", root=tiny_root())
+    sysm = system.System(cell.config, cell.traffic,
+                         run.spawn.spawn(cell.config, SEED), "cpu")
+    with pytest.raises(ValueError, match="no frame prologue"):
+        control.plant(sysm, "prologue")
 
 
 def test_sound_export_is_correct(tiny_root):

@@ -115,10 +115,124 @@ def test_reference_follows_the_ports_plain_path():
     out = fields(port.frame(port.state0))
     ref = sph.Frame(cfg, "cpu").run(sph.initial_state(rows, "cpu"), 4)
     from benchmark import check
-    nums = check.compare_states(out, ref, {"pos": 1e-5, "vel": 1e-3})
+    nums = check.compare_states(out, ref, {"pos": 1e-5, "vel": 1e-3},
+                                sph.Frame(cfg, "cpu"))
     assert nums["pos_apart"] == nums["vel_apart"] == 0.0
     assert nums["pos_gap"] < 1e-5
     assert nums["vel_gap"] < 1e-3
     assert nums["rho_gap"] < 0.05
     assert nums["foam_gap"] < 1e-6
     assert nums["order_breaks"] == 0
+
+
+def test_order_breaks_leave_out_fluid_rows_on_a_cell_plane_only():
+    """In a rotated box, a fluid row on a wall (a plane between two cells)
+    may sit anywhere in the sort; a row off every plane, fluid or ghost,
+    may not."""
+    from benchmark import check
+    cfg = _cfg(box_half=[2.5, 2.5, 2.5], box_center=[0.5, -1.0, 2.0],
+               box_euler_deg=[20.0, 0.0, 30.0])
+    frame = sph.Frame(cfg, "cpu")
+    # the centre of the grid's cell k on an axis; the walls at +-2.5 are
+    # planes between cells (the grid starts one h outside them)
+    mid = lambda k: -2.78 + (k + 0.5) * 0.28  # noqa: E731
+    local = np.array([[mid(1), mid(9), mid(9)],    # 0: fluid, inside
+                      [-2.5, mid(9), mid(9)],      # 1: fluid, on a wall
+                      [mid(9), mid(9), mid(9)],    # 2: fluid, inside
+                      [mid(14), mid(9), mid(9)],   # 3: ghost, inside
+                      [-2.5, mid(12), mid(9)]],    # 4: ghost, on a wall
+                     np.float32)
+    pos = np.asarray(cfg["box_center"], np.float32) + local @ sph.rotation(
+        cfg["box_euler_deg"]).T
+    ref = _state(pos, ghost=[0, 0, 0, 1, 1])
+    gap = frame.cell_plane_gap(ref["pos"])
+    assert float(gap[1]) < 1e-5 and float(gap[4]) < 1e-5
+    assert float(gap[[0, 2, 3]].min()) > 0.1
+
+    def breaks(order):
+        out = {k: v[torch.tensor(order + [5, 6, 7])] for k, v in
+               ref.items()}
+        return check.order_breaks(out, ref, frame, 1e-3)
+    assert breaks([0, 1, 2, 3, 4]) == 0
+    assert breaks([1, 0, 2, 3, 4]) == 0
+    assert breaks([0, 2, 3, 4, 1]) == 0
+    assert breaks([2, 0, 1, 3, 4]) == 1
+    assert breaks([0, 1, 2, 4, 3]) == 1
+    assert breaks([4, 0, 1, 2, 3]) == 1
+
+
+WAVE = {"kind": "wave", "strength": 60.0, "wavelength": 4.0, "phase": 0.7,
+        "direction": [1.0, 0.0, 0.3]}
+
+
+def _waved(**changes):
+    return _cfg(**dict(dict(fluid_rows=1500, box_half=[2.5, 2.5, 2.5],
+                            box_euler_deg=[20.0, 0.0, 30.0],
+                            frame_prologue=WAVE),
+                       **changes))
+
+
+@pytest.mark.parametrize("wave", [WAVE, dict(WAVE, wavelength=3.3,
+                                             phase=-1.9,
+                                             direction=[0.2, -0.7, 0.5])])
+def test_reference_kick_equals_the_ports_wave_impulse(wave):
+    """The reference's wave kick against the port's
+    ``physics.impulses.wave_impulse`` as the harness's ``System.prologue``
+    calls it, on the CPU, ghosts and padding rows included.  Both run the
+    same float32 operations in the same order (the dot product as one
+    matrix product, 2 pi / lambda rounded once), so the tolerance is 0 at
+    the configuration's wavelength of 4; at another wavelength the port's
+    2 pi / lambda is a reciprocal times 2 pi, one rounding more than the
+    reference's quotient, which moves theta by an ulp of k (|p . d| < 6
+    here) and a kick by at most A * 6 * 2**-23 * k, under 2e-6."""
+    from benchmark.system import System
+    cfg = _waved(frame_prologue=wave)
+    cfg.update(ghost_shell=True)
+    rows = spawn.spawn(cfg, 2**31 + 41)
+    port = System(cfg, {"substeps": 16, "export": None}, rows, "cpu")
+    st = port.state0.replace(vel=torch.randn(port.state0.n, 3,
+                                             generator=torch.Generator()
+                                             .manual_seed(3)))
+    got = System.fields(port.prologue(st))
+    want = sph.Frame(cfg, "cpu").kick(System.fields(st), 16)
+    tol = 0.0 if wave["wavelength"] == 4.0 else 2e-6
+    assert float((got["vel"] - want["vel"]).abs().max()) <= tol
+    kicked = (st.ghost == 0) & (st.valid > 0)
+    assert torch.equal(got["vel"][~kicked], st.vel[~kicked])
+    assert float((got["vel"] - st.vel)[kicked].abs().max()) > 0.5
+
+
+def test_reference_frame_starts_with_the_kick_once():
+    cfg = _waved()
+    rows = spawn.spawn(cfg, 2**31 + 42)
+    frame = sph.Frame(cfg, "cpu")
+    st = sph.initial_state(rows, "cpu")
+    want = frame.kick(st, 2)
+    for _ in range(2):
+        want = frame.substep(want)
+    got = frame.run(st, 2)
+    assert all(torch.equal(got[k], want[k]) for k in sph.FIELDS)
+    # without the key, a frame is its substeps alone
+    plain = sph.Frame(dict(cfg, frame_prologue=None), "cpu")
+    want = plain.substep(plain.substep(st))
+    got = plain.run(st, 2)
+    assert all(torch.equal(got[k], want[k]) for k in sph.FIELDS)
+
+
+def test_control_kick_rounds_the_dot_product_to_tf32():
+    cfg = _waved()
+    st = sph.initial_state(spawn.spawn(cfg, 2**31 + 43), "cpu")
+    exact = sph.Frame(cfg, "cpu").kick(st, 16)["vel"]
+    low = sph.Frame(cfg, "cpu", low=True).kick(st, 16)["vel"]
+    gap = float((exact - low).abs().max())
+    assert 1e-5 < gap < 1e-2
+
+
+def test_unknown_prologue_raises():
+    with pytest.raises(ValueError, match="frame_prologue kind 'vortex'"):
+        sph.Frame(_waved(frame_prologue=dict(WAVE, kind="vortex")), "cpu")
+    from benchmark.system import System
+    cfg = _waved(frame_prologue=dict(WAVE, kind="vortex"))
+    with pytest.raises(ValueError, match="frame_prologue kind 'vortex'"):
+        System(cfg, {"substeps": 16, "export": None},
+               spawn.spawn(_waved(), 2**31 + 44), "cpu")
