@@ -15,6 +15,10 @@ All are pure transforms ``state -> state`` on the state's device; ghosts
 and padding are skipped.  The curl noise's hash takes the fractional part
 of products, so an ulp of difference changes its value: it is
 ``viz/palettes.hash13``, whose sums are written out left to right.
+
+The wave, which a configuration may run once a frame before the frame
+program (``app/configs.frame_prologue``), lies in the span
+``sph.impulse.wave`` and counts ``impulses.wave`` (``utils/trace.py``).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from sph_tpu_torch.core.device import constant, filled
 from sph_tpu_torch.core.params import (FluidParams, effective_half,
                                        rotation_matrix)
 from sph_tpu_torch.core.state import ParticleState
+from sph_tpu_torch.utils import trace
 from sph_tpu_torch.viz import palettes
 
 
@@ -56,21 +61,23 @@ def wave_impulse(state: ParticleState, amplitude, wavelength, phase,
                  direction, y_min=-math.inf, y_max=math.inf
                  ) -> ParticleState:
     """v += dhat * A sin(2pi/lambda * p.dhat + phase) within [y_min, y_max]."""
-    dev = state.pos.device
-    amplitude, wavelength, phase = (_f32(amplitude, dev),
-                                    _f32(wavelength, dev), _f32(phase, dev))
-    d = _f32(direction, dev)
-    dlen = torch.sqrt(torch.sum(d * d))
-    nd = torch.where(dlen > 1e-6, d / torch.clamp_min(dlen, 1e-12),
-                     _fixed((0.0, 1.0, 0.0), dev))
-    k = 2.0 * math.pi / torch.clamp_min(wavelength, 1e-6)
-    theta = k * (state.pos @ nd) + phase
-    kick = amplitude * torch.sin(theta)
-    y = state.pos[:, 1]
-    ok = (_live(state) & (y >= y_min) & (y <= y_max)
-          & (wavelength > 1e-6) & (amplitude != 0.0))
-    return state.replace(vel=state.vel + torch.where(
-        ok[:, None], kick[:, None] * nd[None, :], 0.0))
+    trace.count("impulses.wave")
+    with trace.span("sph.impulse.wave"):
+        dev = state.pos.device
+        amplitude, wavelength, phase = (_f32(amplitude, dev),
+                                        _f32(wavelength, dev), _f32(phase, dev))
+        d = _f32(direction, dev)
+        dlen = torch.sqrt(torch.sum(d * d))
+        nd = torch.where(dlen > 1e-6, d / torch.clamp_min(dlen, 1e-12),
+                         _fixed((0.0, 1.0, 0.0), dev))
+        k = 2.0 * math.pi / torch.clamp_min(wavelength, 1e-6)
+        theta = k * (state.pos @ nd) + phase
+        kick = amplitude * torch.sin(theta)
+        y = state.pos[:, 1]
+        ok = (_live(state) & (y >= y_min) & (y <= y_max)
+              & (wavelength > 1e-6) & (amplitude != 0.0))
+        return state.replace(vel=state.vel + torch.where(
+            ok[:, None], kick[:, None] * nd[None, :], 0.0))
 
 
 def vortex_impulse(state: ParticleState, params: FluidParams,

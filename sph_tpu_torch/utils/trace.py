@@ -8,7 +8,11 @@ each span adds its host seconds and one call to :func:`totals`, and while
 a ``torch.profiler`` records it also opens
 ``torch.profiler.record_function``, so the span lies in the profiler's
 trace on the clock of the device's operations: each stretch of the
-device's idle time can be put down to the span the host was in.
+device's idle time can be put down to the span the host was in.  The
+frame path's spans: ``sph.run_substeps``, ``sph.neighbor_aux``,
+``sph.build_ghosts`` and ``sph.graph.*`` (``engine/``, ``neighbors/``),
+and ``sph.impulse.wave``, the wave kick that a frame's prologue runs
+before the frame program (``physics/impulses.wave_impulse``).
 
 A **counter** (``count(name)``) always counts, one dict increment:
 
@@ -19,6 +23,10 @@ A **counter** (``count(name)``) always counts, one dict increment:
   ``neighbors/cells.ghost_sort``);
 - ``ghost_builds``: the static ghost structures built
   (``neighbors/cells.build_ghosts``);
+- ``impulses.wave``: the wave kicks (``physics/impulses.wave_impulse``,
+  under the span ``sph.impulse.wave``), which a configuration with a
+  frame prologue runs once a frame before the frame program: the record
+  of the kicks where spans are off, as they are by default;
 - ``launches.<kernel>``: the kernel wrappers' launch counts, kept in their
   modules' ``LAUNCHES`` dicts (registered here by :func:`launch_counts`)
   and read through :func:`counters`.
