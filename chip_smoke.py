@@ -24,6 +24,20 @@ prints no result line):
              kernel's source records bit-equal to the plain packing; then
              the density kernel and both cell-engine force kernels on a
              state with 2,400 rows in one cell, against the plain versions;
+3a. dense — the force kernel on later states of the benchmark's three
+             configurations (``DENSE_FRAMES`` frames of each main path:
+             ``rotated_512k`` after 60, its piled-up corner): ``nvcc
+             -Xptxas -v``'s registers and spills of both force kernels;
+             the kernel's tile-path counter equal to
+             ``sweeps.tile_warp_count``; its outputs with the counter, a
+             second launch and the emit variant bit-equal; timed with CUDA
+             events beside its bound.  ``python3 chip_smoke.py dense
+             --against <root>`` runs this phase alone, with the force kernel
+             of another checkout at ``<root>`` (built by its own
+             ``native/build.py``) on the same inputs: its outputs bit-equal
+             or the largest differences within the tolerances, and both
+             kernels timed in turns; ``--states <dir>`` saves the states
+             there, or reads them where saved;
 3b. container — on the full ``default_131k`` and ``ghost_1m`` states
              (sorted rows and the sweep kernels' outputs after one plain
              substep), the container pass (``csrc/container.cu``) in each
@@ -826,6 +840,236 @@ def phase_crowded(dev):
     log(f"crowded cell ({n} fluid rows, {fullest} in one cell): force_xsph "
         f"max abs err pos {errs[0]!r} vel {errs[1]!r} acc {errs[2]!r}; "
         f"force_xsph_emit bit-equal to it")
+
+
+# Phase "dense": the force kernel on states of the three benchmark
+# configurations after this many frames of their main path (the prologue
+# and 16 substeps a frame): rotated_512k's piled-up corner (40 to 170 rows a
+# cell from frame 20 on), and the others where neighbor_counts reads them.
+DENSE_FRAMES = {"default_131k": 5, "ghost_1m": 5, "rotated_512k": 60}
+DENSE_REPS = 20
+DENSE_TURNS = 3
+
+
+def dense_inputs(dev, config, frames, states_dir=None):
+    """The force kernel's inputs after ``frames`` frames of ``config``: the
+    sorted rows, the density kernel's rho and source records, the sweep
+    params and the ghost structure.  With ``states_dir`` they are read from
+    ``<config>_<frames>.pt`` there when it exists, else saved there."""
+    import os
+
+    import torch
+    from sph_tpu_torch.app import configs
+    from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
+    from sph_tpu_torch.neighbors import cells, sweeps
+    from sph_tpu_torch.neighbors.cells import GhostRows
+
+    path = (None if states_dir is None
+            else os.path.join(states_dir, f"{config}_{frames}.pt"))
+    if path is not None and os.path.exists(path):
+        d = torch.load(path, map_location=dev)
+        ghosts = None if d["ghosts"] is None else GhostRows(*d["ghosts"])
+        pv = sweeps.SweepParams(d["consts"], *d["dims"])
+        return d["args"], pv, ghosts
+    state, params, cfg = configs.build(config, device=dev)
+    prologue = configs.frame_prologue(config, params, FRAME_SUBSTEPS)
+    buffers = SceneBuffers.create(cfg, device=dev)
+    for _ in range(frames):
+        state, buffers = run_substeps(prologue(state), params, buffers,
+                                      params.dt, FRAME_SUBSTEPS, cfg)
+    pv, ghosts = sweeps.prepare(state, params, params.dt, cfg)
+    r = cells.build(state, params, cfg.grid_dims)
+    rho, _, src = sweeps.density_sources(r.key, r.state.pos, r.state.vel,
+                                         r.cell_start, r.cell_end, pv, ghosts)
+    args = (r.key, r.state.pos, r.state.vel, rho, r.cell_start, r.cell_end,
+            src)
+    if path is not None:
+        os.makedirs(states_dir, exist_ok=True)
+        torch.save({"args": args, "consts": pv.consts,
+                    "dims": (pv.nx, pv.ny, pv.nz),
+                    "ghosts": None if ghosts is None else tuple(ghosts)},
+                   path)
+    return args, pv, ghosts
+
+
+def other_force_library(root):
+    """The force kernel of another checkout at ``root`` (its own build,
+    made by its own ``native/build.py``), loaded beside this one: (lib,
+    whether its entry point takes the tile counter)."""
+    import ctypes
+    import os
+    import subprocess
+
+    from sph_tpu_torch.native import build
+    out = subprocess.run(
+        [sys.executable, "-c", "from sph_tpu_torch.native import build; "
+         "print(build.library_path())"],
+        cwd=root, capture_output=True, text=True, check=True)
+    lib = ctypes.CDLL(out.stdout.strip().splitlines()[-1])
+    with open(os.path.join(root, "sph_tpu_torch", "csrc", "sweeps.h")) as f:
+        counted = "tile_warps" in f.read()
+    types = build.library().sph_force_xsph.argtypes
+    lib.sph_force_xsph.argtypes = types if counted else types[:-1]
+    lib.sph_force_xsph.restype = ctypes.c_int
+    return lib, counted
+
+
+def launch_force(lib, args, pv, ghosts, counted=True, counter=None):
+    """One launch of ``lib``'s ``sph_force_xsph`` on the inputs of
+    ``dense_inputs``, as ``sweeps.force_xsph`` launches it (outputs
+    allocated first): (npos, nvel, acc)."""
+    import torch
+    from sph_tpu_torch.neighbors import sweeps
+    key, pos, vel, rho, cs, ce, src = args
+    npos, nvel, acc = (torch.empty_like(pos) for _ in range(3))
+    tail = (None if counter is None else counter.data_ptr(),) if counted \
+        else ()
+    err = lib.sph_force_xsph(
+        key.data_ptr(), src.data_ptr(), src.shape[1], cs.data_ptr(),
+        ce.data_ptr(), key.shape[0], *sweeps._ghost_args(ghosts),
+        *sweeps.c_params(pv), npos.data_ptr(), nvel.data_ptr(),
+        acc.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream,
+        *tail)
+    if err != 0:
+        raise RuntimeError(f"force_xsph launch failed: CUDA error {err}")
+    return npos, nvel, acc
+
+
+def force_registers() -> dict:
+    """``nvcc -Xptxas -v`` on csrc/sweeps.cu: each force kernel's
+    registers, stack and spill bytes."""
+    import os
+    import re
+    import subprocess
+    import tempfile
+
+    from sph_tpu_torch.native import build
+    src = os.path.join(build.CSRC_DIR, "sweeps.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run(
+            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+             os.path.join(tmp, "sweeps.o"), src],
+            capture_output=True, text=True, check=True)
+    out, name = {}, None
+    for line in (res.stdout + res.stderr).splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", line)
+        if m:
+            name = m.group(1) if "force_xsph_kernel" in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        rec = out.setdefault("emit" if "ILb1E" in name else "plain", {})
+        for field, pat in (("stack", r"(\d+) bytes stack frame"),
+                           ("spill_stores", r"(\d+) bytes spill stores"),
+                           ("spill_loads", r"(\d+) bytes spill loads"),
+                           ("registers", r"Used (\d+) registers")):
+            m = re.search(pat, line)
+            if m:
+                rec[field] = int(m.group(1))
+    log(f"force_xsph_kernel (-Xptxas -v): {json.dumps(out)}")
+    if set(out) != {"plain", "emit"}:
+        raise AssertionError(f"force_xsph_kernel: -Xptxas -v gave {out}")
+    return out
+
+
+def phase_dense(dev, against=None, states_dir=None):
+    """The force kernel on the states of ``DENSE_FRAMES``: its tile-path
+    counter against ``sweeps.tile_warp_count``, outputs with the counter
+    bit-equal to those without, a second launch and the emit variant
+    bit-equal, timed with its bound (the phase-3 count on these rows).
+    With ``against`` (another checkout's root), that checkout's force kernel
+    on the same inputs: outputs bit-equal or the largest differences within
+    the tolerances, and both timed in turns, this tree's first."""
+    import statistics
+
+    import torch
+    from sph_tpu_torch.app.microbench import time_ms
+    from sph_tpu_torch.native import build
+    from sph_tpu_torch.neighbors import sweeps
+
+    regs = force_registers()
+    lib = build.library()
+    other = None if against is None else other_force_library(against)
+    out = {"registers": regs}
+    for config, frames in DENSE_FRAMES.items():
+        args, pv, ghosts = dense_inputs(dev, config, frames, states_dir)
+        key, pos, vel, rho, cs, ce, src = args
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
+        got = launch_force(lib, args, pv, ghosts, counter=counter)
+        plain = launch_force(lib, args, pv, ghosts)
+        per = sweeps.force_xsph_emit(key, pos, vel, rho, cs, ce, pv, ghosts,
+                                     src)
+        torch.cuda.synchronize()
+        tiles = sweeps.tile_warp_count(key, pv.num_cells, pv.nx)
+        fluid_rows = int((key < pv.num_cells).sum())
+        warps = -(-fluid_rows // 32)
+        if int(counter) != tiles:
+            raise AssertionError(f"{config} dense: the kernel counted "
+                                 f"{int(counter)} tile warps, the rule "
+                                 f"{tiles}")
+        for a, b in zip(got, plain):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{config} dense: outputs with the "
+                                     f"counter differ from those without")
+        if not torch.equal(per[:, :9], torch.cat(got, 1)):
+            raise AssertionError(f"{config} dense: force_xsph_emit is not "
+                                 f"bit-equal to force_xsph_kernel")
+        check_repeat(f"{config} dense force_xsph", got,
+                     lambda: launch_force(lib, args, pv, ghosts))
+        cand, _, near_f, near_x = cell_pairs(key, pos, got[0], cs, ce, pv,
+                                             ghosts)
+        n, nc8 = int(key.shape[0]), 8 * pv.num_cells
+        gbytes = 0 if ghosts is None else 12 * ghosts.count + nc8
+        nbytes = 32 * n + nc8 + gbytes + 36 * n
+        ops = (2 * OPS_TEST * cand + OPS_FORCE_NEAR * near_f
+               + OPS_XSPH_NEAR * near_x)
+        rec = {"frames": frames, "rows": fluid_rows, "tile_warps": tiles,
+               "tile_share": tiles / max(warps, 1), "candidates": cand,
+               "pairs_force": near_f, "pairs_xsph": near_x}
+        log(f"{config} after {frames} frames: {fluid_rows} fluid rows, "
+            f"{cand} candidates, {near_f} pairs within h (force), {near_x} "
+            f"(XSPH); tile path {tiles} of {warps} warps "
+            f"({rec['tile_share']!r}); counter, relaunch and emit checks "
+            f"passed")
+        mine = lambda: launch_force(lib, args, pv, ghosts)
+        if other is None:
+            ms = time_ms(mine, DENSE_REPS)
+            rec.update(report(config, "force_xsph dense", ms, None, nbytes,
+                              ops, n))
+            out[config] = rec
+            continue
+        olib, counted = other
+        theirs = lambda: launch_force(olib, args, pv, ghosts, counted)
+        ref = theirs()
+        torch.cuda.synchronize()
+        if all(torch.equal(a, b) for a, b in zip(got, ref)):
+            rec["against"] = "bit-equal"
+        else:
+            rec["against"] = {
+                "npos": check_close(f"{config} npos against", got[0], ref[0],
+                                    0.0, POS_ATOL),
+                "nvel": check_close(f"{config} nvel against", got[1], ref[1],
+                                    0.0, VEL_ATOL),
+                "acc": check_close(f"{config} acc against", got[2], ref[2],
+                                   ACC_RTOL, ACC_ATOL),
+                "rows_apart": int((torch.cat(got, 1) != torch.cat(ref, 1))
+                                  .any(1).sum())}
+        turns = {"this": [], "against": []}
+        for _ in range(DENSE_TURNS):
+            for side in ("this", "against", "against", "this"):
+                turns[side].append(time_ms(mine if side == "this" else theirs,
+                                           DENSE_REPS))
+        ms = statistics.median(turns["this"])
+        ms_other = statistics.median(turns["against"])
+        rec.update(report(config, "force_xsph dense", ms, None, nbytes, ops,
+                          n))
+        rec.update(against_ms=ms_other, turns=turns, speedup=ms_other / ms)
+        log(f"{config} dense force_xsph: this tree {ms!r} ms, {against} "
+            f"{ms_other!r} ms (medians of {2 * DENSE_TURNS}, in turns), "
+            f"{ms_other / ms!r}x; outputs against it: {rec['against']}")
+        out[config] = rec
+    return out
 
 
 def phase_kernels_brute(dev, config):
@@ -2725,7 +2969,17 @@ def timed(name, fn, *args, **kw):
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("phase", nargs="?", default="all", choices=["all",
+                                                                "dense"],
+                    help="every phase, or phase dense alone")
+    ap.add_argument("--against", help="phase dense: another checkout's root, "
+                    "whose force kernel runs beside this one's")
+    ap.add_argument("--states", help="phase dense: a folder to save the "
+                    "states in, or to read them from where they are saved")
+    a = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
@@ -2744,6 +2998,11 @@ def main() -> int:
     t_start = t0 = time.perf_counter()
     build.library()
     log(f"build: {time.perf_counter() - t0!r} s")
+    if a.phase == "dense":
+        rec = timed("dense", phase_dense, dev, a.against, a.states)
+        print(json.dumps({"dense": rec}), flush=True)
+        print(card_line(), flush=True)
+        return 0
 
     measured = {
         "default_131k": timed("kernels default_131k", phase_kernels, dev,
@@ -2760,6 +3019,7 @@ def main() -> int:
         measured[config]["container"] = timed(
             f"container {config}", phase_container, dev, config)
     timed("crowded", phase_crowded, dev)
+    dense = timed("dense", phase_dense, dev)
     timed("small", phase_small, dev)
     counts, graph_ms = {}, {}
     for config in CONFIGS:
@@ -2808,6 +3068,7 @@ def main() -> int:
                     f"{at['bound_ms']} ms: the bound's count is wrong")
     log(f"graph: ms/substep medians, eager and graph in turns, by path "
         f"{json.dumps(graph_ms)}")
+    log(f"dense: the force kernel on later states {json.dumps(dense)}")
     log(f"all phases passed in {time.perf_counter() - t_start!r} s, the "
         f"build included")
     print(json.dumps(record), flush=True)

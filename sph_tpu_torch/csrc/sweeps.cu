@@ -54,8 +54,9 @@
 //     have work, and branch-free: a record that fails the exact test adds
 //     zeros, so nothing stands between one record's loads and the next's
 //     and the loop keeps two records in flight.  The queue is 32 entries a
-//     thread in shared memory (16 KB a block, 8 blocks of 128 threads an
-//     SM, so an SM keeps 32 warps; 40 and 48 entries were slower, they
+//     thread in shared memory (16 KB a block, 7 blocks of 128 threads an
+//     SM since the tile path below, so an SM keeps 28 warps; 40 and 48
+//     entries were slower at 8 blocks, they
 //     take the room from L1).  When a lane's queue fills (compressed
 //     columns, a crowded cell) the warp runs the math over all its queues,
 //     empties them and walks on, so no candidate is ever dropped, at any
@@ -71,10 +72,46 @@
 //     bounds loaded while the current one is walked; r comes from one
 //     rsqrt.approx of r2 (as csrc/brute.cu), the queue's r2 prefilter sits
 //     a relative 1e-4 above h2 and the exact test decides.
-// Sums run in the queue's order, which is the walk's, and no atomics are
-// used, so two launches on the same inputs are bit-equal, and the emit
-// variant is bit-equal to the plain one.  No TMA or wgmma: the ranges are
-// short, ragged and per lane, and there is no matrix product.
+//
+// What bounds it in a crowded state (rotated_512k's piled-up corner: 40 to
+// 170 rows a cell, 2,000 to 4,300 candidates and 200 to 800 sources within
+// h a row): the queue fills about 30 times a walk, so every warp walks
+// twice, and the 32 lanes issue 32 separate loads for what, inside one
+// cell, are the very same records.  But the rows are sorted by cell, so a
+// crowded cell holds whole aligned warps, whose 32 rows share the same 9
+// ranges exactly.  Such a warp (all 32 rows fluid and of one key, or of
+// two keys side by side in x: decided once, by a warp vote) takes the tile
+// path instead, as csrc/brute.cu's force kernel does: for each range of
+// the warp's cell or pair of cells, in tiles of 32 records, each lane
+// stages one record in the warp's 4 KB of the queue's memory (so the
+// shared memory stays as it is), tests its row against all 32 without a
+// branch into a hit mask (the expanded test, 3 FFMA a candidate, about the
+// warp's first row, with a slack that lets every source within h through),
+// keeps the bits of its own range (a pair of cells spans four in x, a row
+// reads its own three, the queue path's candidates, whatever the cells'
+// width) and runs the same pair math over the hits, lowest first.  Nothing is queued, so
+// nothing spills; pass 2 sweeps the ranges again about the fresh position.
+// Every other warp (a cell boundary inside it, the last partial warp,
+// ghost or padding rows) walks and queues as above.  The two paths are two
+// inlined copies of the rest of the kernel, so that neither keeps the
+// other's state live.  What bounds the tile path is the issue rate again,
+// now of the 3 FFMA a candidate and of the pair math, which runs as long as
+// the lane with the most hits in a tile; and registers: with it the kernel
+// needs more than 64 a thread, so it runs 7 blocks an SM at 72.  On the
+// H100 at 700 W, against the kernel without it: 2.32x on rotated_512k after
+// 60 frames (1.44x after 20, 2.61x after 100), 1.07x on default_131k and
+// 0.98x on ghost_1m after 5.  One cell a warp only: 1.45x after 60; at 64
+// registers it spilled more, 1.27x, 0.95x and 0.93x; as two launches, a
+// tile kernel and a queue kernel, 1.23x, 0.94x and 0.90x.
+//
+// Sums run in the queue's order, which is the walk's; the tile path adds a
+// row's sources in the same order (a source that fails the exact test adds
+// zeros on the queue path, which leaves a float sum as it is), and no
+// atomics are used (but on the optional tile_warps counter), so two
+// launches on the same inputs are bit-equal, the emit variant is bit-equal
+// to the plain one, and a row's results do not depend on the path its warp
+// took.  No TMA or wgmma: the ranges are short and ragged, and there is no
+// matrix product.
 //
 // What bounds the density kernel (same card; PERF.md section 6 has every
 // shape tried): the rate at which the SMs issue the walk, as in the force
@@ -237,8 +274,15 @@ __device__ __forceinline__ void store_row(int i, float px, float py, float pz,
 }
 
 constexpr int kQueue = 32;             // queued pairs a row
-constexpr int kForceBlocks = 8;        // blocks an SM (64 registers a thread)
+constexpr int kForceBlocks = 7;        // blocks an SM (72 registers a thread)
+constexpr int kWarps = kBlock / 32;
 constexpr float kMarginFrac = 0.05f;   // the queue's margin, in h
+// the tile test's slack: a relative 1e-4 of h^2 (the rsqrt.approx of the
+// exact test), and 1e-5 of the squared distances from the warp's first row
+// that the expanded form rounds (its rounding is below 2e-6 of them)
+constexpr float kTileSlack = 1e-4f;
+constexpr float kTileRound = 1e-5f;
+constexpr int kTestGroup = 8;          // tile tests unrolled a step
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 __device__ __forceinline__ float rsqrt_approx(float x) {
@@ -248,6 +292,8 @@ __device__ __forceinline__ float rsqrt_approx(float x) {
 }
 
 // sa, sb: the source records (sweeps.h), the ghosts' after the n rows.
+// tile_warps: null, or a counter to which every warp that takes the tile
+// path adds 1.
 template <bool kEmit>
 __global__ void __launch_bounds__(kBlock, kForceBlocks)
 force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
@@ -258,14 +304,17 @@ force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
                   const SphSweepParams* __restrict__ prm,
                   float* __restrict__ npos,
                   float* __restrict__ nvel, float* __restrict__ acc,
-                  float* __restrict__ per) {
+                  float* __restrict__ per, int* __restrict__ tile_warps) {
   const SphSweepParams p = *prm;
-  // the queue: record indices, entry q of thread t at queue[q][t]
-  __shared__ int queue[kQueue][kBlock];
+  // the queue: record indices, entry q of lane l of warp w at queue[w][q][l];
+  // a warp on the tile path stages its tiles in its own 4 KB of it instead
+  __shared__ __align__(16) int queue[kWarps][kQueue][32];
   const int tid = threadIdx.x;
-  const unsigned qbase =
-      static_cast<unsigned>(__cvta_generic_to_shared(&queue[0][tid]));
-  const unsigned qend = qbase + kQueue * kBlock * 4;
+  const int lane = tid & 31;
+  constexpr unsigned kEntry = 32 * 4;   // one entry of every lane, in bytes
+  const unsigned qbase = static_cast<unsigned>(
+      __cvta_generic_to_shared(&queue[tid >> 5][0][lane]));
+  const unsigned qend = qbase + kQueue * kEntry;
   const int i = blockIdx.x * blockDim.x + tid;
   const int nc = grid.nx * grid.ny * grid.nz;
   // no thread leaves before the last warp vote: a row out of range or
@@ -273,6 +322,13 @@ force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
   const bool in = i < n;
   const int k = in ? key[i] : nc;
   const bool fluid = k < nc;
+  // the tile path: the warp's 32 rows are all fluid and in one cell, or in
+  // two cells side by side in x (the rows are sorted, so they share the 9
+  // ranges of that cell or pair of cells)
+  const int k0 = __shfl_sync(kFullWarp, k, 0);
+  const bool tile = __all_sync(
+      kFullWarp, fluid & ((k == k0) | ((k == k0 + 1) &
+                                       (k0 % grid.nx + 1 < grid.nx))));
   float4 self_a = make_float4(0.f, 0.f, 0.f, 0.f), self_b = self_a;
   if (in) self_a = sa[i], self_b = sb[i];
   const float xi = self_a.x, yi = self_a.y, zi = self_a.z, rhoi = self_a.w;
@@ -302,10 +358,11 @@ force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
   // Every lane of the warp runs fn over its queued records, as many rounds
   // as the fullest lane has.
   auto drain = [&](auto fn) {
-    const int queued = static_cast<int>((qaddr - qbase) / (kBlock * 4));
+    const int queued = static_cast<int>((qaddr - qbase) / kEntry);
     const int most = __reduce_max_sync(kFullWarp, queued);
 #pragma unroll 2
-    for (int q = 0; q < most; ++q) fn(q < queued ? queue[q][tid] : idle);
+    for (int q = 0; q < most; ++q)
+      fn(q < queued ? queue[tid >> 5][q][lane] : idle);
   };
   // Queues the record index of every candidate within `limit` (squared)
   // of c, or, with kTwo, also within near2 of c + s: the 9 fluid ranges,
@@ -347,7 +404,7 @@ force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
         for (;;) {
           // two candidates a step, while two queue slots are free
 #pragma unroll 1
-          for (; j < e && qaddr < qend - kBlock * 4; j += 2) {
+          for (; j < e && qaddr < qend - kEntry; j += 2) {
             const int j1 = min(j + 1, e - 1);
             const float4 a0 = __ldg(src + j);
             const float4 a1 = __ldg(src + j1);
@@ -368,7 +425,7 @@ force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
             auto push = [&](int e_) {
               asm volatile("st.shared.b32 [%0], %1;" ::"r"(qaddr), "r"(e_)
                            : "memory");
-              qaddr += kBlock * 4;
+              qaddr += kEntry;
             };
             if (near(a0)) push(first + j);
             if (near(a1) & (j + 1 < e)) push(first + j + 1);
@@ -387,123 +444,234 @@ force_xsph_kernel(const int* __restrict__ key, const float4* __restrict__ sa,
   const std::true_type both_centers;
   const std::false_type one_center;
 
-  // --- pass 1: pressure, viscosity, color field (SPHFluid.comp:129-151)
-  float fpx = 0.f, fpy = 0.f, fpz = 0.f;
-  float fvx = 0.f, fvy = 0.f, fvz = 0.f;
-  float gcx = 0.f, gcy = 0.f, gcz = 0.f, lc = 0.f;
-  // One queued record, branch-free so that the drain loop can keep several
-  // records' loads in flight: one that fails the exact r < h test, is dead
-  // (rho <= 0) or is the row itself adds zeros.
-  auto pair = [&](int e) {
-    const float4 a = __ldg(sa + e);
-    const float4 b = __ldg(sb + e);
-    const float rx = xi - a.x;
-    const float ry = yi - a.y;
-    const float rz = zi - a.z;
-    const float r2 = rx * rx + ry * ry + rz * rz;
-    const float rinv = rsqrt_approx(fmaxf(r2, 1e-24f));
-    const float r = r2 * rinv;
-    const bool ok = (r < p.h) & (a.w > 0.f) & (e != i);
-    const float presj = fmaxf(p.gas_k * (a.w - p.rho0), 0.f);
-    const float m_over_rho = b.w;
-    const float dcl = p.h - r;
-    const float gmag = ok & (r2 > 0.f) ? p.spiky * dcl * dcl * rinv : 0.f;
-    const float lapw = ok ? p.visc_lap * dcl : 0.f;
-    const float ps = gmag * (-(presi + presj) * 0.5f * m_over_rho);
-    fpx += rx * ps;
-    fpy += ry * ps;
-    fpz += rz * ps;
-    const float vs = m_over_rho * lapw;
-    fvx += (b.x - vxi) * vs;
-    fvy += (b.y - vyi) * vs;
-    fvz += (b.z - vzi) * vs;
-    const float gs = gmag * m_over_rho;
-    gcx += rx * gs;
-    gcy += ry * gs;
-    gcz += rz * gs;
-    lc += vs;
+  // The tile path's sweep about c (the row's pos, then its fresh position):
+  // the 9 fluid ranges, then the 9 ghost ranges, of the warp's cell or pair
+  // of cells (x0 - 1 to x1 + 1), in tiles of 32 records; a row takes the
+  // part of a tile in its own range (x - 1 to x + 1).  Each lane stages one record of a
+  // tile (a coalesced load) in the warp's slice of the queue's memory; each
+  // lane then tests its row against all 32 without a branch and runs fn
+  // over the hits, lowest first, so a row meets its sources in the queue
+  // path's order (ranges in order, j ascending, fluid before ghosts) and
+  // its sums are the same.  The test is the expanded one of csrc/brute.cu,
+  // |s'|^2 - 2 c'.s' < h^2 - |c'|^2, in coordinates about the warp's first
+  // row (c' = c - o, s' = s - o), 3 FFMA a candidate; its slack covers the
+  // rounding, so every source within h passes and the exact test decides.
+  float4* const stage_a = reinterpret_cast<float4*>(&queue[tid >> 5][0][0]);
+  float4* const stage_b = stage_a + 32;
+  float4* const stage_t = stage_a + 64;
+  auto sweep = [&](float cx, float cy, float cz, auto fn) {
+    for (int q = 0; q < (has_ghosts ? 18 : 9); ++q) {
+      // the range's bounds, from the key (nothing of it is kept live)
+      const int g = q >= 9;
+      const int kx = k % grid.nx;
+      const int wx0 = __shfl_sync(kFullWarp, kx, 0);
+      const int wx1 = __shfl_sync(kFullWarp, kx, 31);
+      const int yy = k / (grid.nx * grid.nz) + (q - 9 * g) / 3 - 1;
+      const int zz = (k / grid.nx) % grid.nz + (q - 9 * g) % 3 - 1;
+      int j = 0, e = 0, lo = 0, hi = 0;
+      if (static_cast<unsigned>(yy) < static_cast<unsigned>(grid.ny) &&
+          static_cast<unsigned>(zz) < static_cast<unsigned>(grid.nz)) {
+        const int row = grid.nx * (zz + grid.nz * yy);
+        const int* st = g ? gcs : cs;
+        const int* en = g ? gce : ce;
+        j = __ldg(st + row + max(wx0 - 1, 0));
+        e = __ldg(en + row + min(wx1 + 1, grid.nx - 1));
+        lo = __ldg(st + row + max(kx - 1, 0));
+        hi = __ldg(en + row + min(kx + 1, grid.nx - 1));
+      }
+      auto below = [](int t) {
+        return t <= 0 ? 0u : t >= 32 ? ~0u : (1u << t) - 1u;
+      };
+      const int first = g ? n : 0;
+      for (; j < e; j += 32) {
+        // o, the warp's first row, and the row's terms of the test, made
+        // again a tile (not kept live)
+        const float ox = __shfl_sync(kFullWarp, xi, 0);
+        const float oy = __shfl_sync(kFullWarp, yi, 0);
+        const float oz = __shfl_sync(kFullWarp, zi, 0);
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a, t = a;
+        if (j + lane < e) {
+          a = __ldg(sa + first + j + lane);
+          b = __ldg(sb + first + j + lane);
+          t.x = a.x - ox, t.y = a.y - oy, t.z = a.z - oz;
+          t.w = t.x * t.x + t.y * t.y + t.z * t.z;
+        }
+        // the tile's widest |s'|^2 sizes its slack (a NaN or inf position
+        // lets the whole tile through, to the exact test)
+        const float widest = fminf(
+            __uint_as_float(
+                __reduce_max_sync(kFullWarp, __float_as_uint(t.w))),
+            3e38f);
+        const float qx = cx - ox, qy = cy - oy, qz = cz - oz;
+        const float cq = qx * qx + qy * qy + qz * qz;
+        const float limit =
+            p.h2 * (1.f + kTileSlack) - cq + kTileRound * (cq + widest);
+        const float ux = -2.f * qx, uy = -2.f * qy, uz = -2.f * qz;
+        __syncwarp();   // the last tile's hits are read
+        stage_a[lane] = a, stage_b[lane] = b, stage_t[lane] = t;
+        __syncwarp();
+        // kTestGroup tests a step (4 and 16 measured the same)
+        unsigned hits = 0u;
+#pragma unroll 1
+        for (int s0 = 0; s0 < 32; s0 += kTestGroup) {
+          unsigned group = 0u;
+#pragma unroll
+          for (int s = 0; s < kTestGroup; ++s) {
+            const float4 r = stage_t[s0 + s];
+            const float d = fmaf(ux, r.x, fmaf(uy, r.y, fmaf(uz, r.z, r.w)));
+            group |= (d < limit ? 1u : 0u) << s;
+          }
+          hits |= group << s0;
+        }
+        hits &= below(hi - j) & ~below(lo - j);   // the row's own range
+        while (hits != 0u) {
+          const int s = __ffs(hits) - 1;
+          hits &= hits - 1u;
+          fn(stage_a[s], stage_b[s], first + j + s);
+        }
+      }
+    }
   };
-  // the one walk: whatever is near either center waits in the queue
-  const bool spilled = walk(both_centers, xi, yi, zi, near1, pair);
-  drain(pair);
 
-  // --- surface tension, gravity, integrate (SPHFluid.comp:156-171)
-  const float glen = sqrtf(gcx * gcx + gcy * gcy + gcz * gcz);
-  float stx = 0.f, sty = 0.f, stz = 0.f;
-  if (glen > kSurfaceThreshold) {
-    const float g = fmaxf(glen, 1e-30f);
-    const float c = -p.st * lc;
-    stx = c * (gcx / g);
-    sty = c * (gcy / g);
-    stz = c * (gcz / g);
-  }
-  const float rs = fmaxf(rhoi, 1e-12f);
-  const float ax = (fpx + p.mu * fvx + p.gx * rhoi + stx) / rs;
-  const float ay = (fpy + p.mu * fvy + p.gy * rhoi + sty) / rs;
-  const float az = (fpz + p.mu * fvz + p.gz * rhoi + stz) / rs;
-  const float nvx = (vxi + ax * p.dt) * kDamping;
-  const float nvy = (vyi + ay * p.dt) * kDamping;
-  const float nvz = (vzi + az * p.dt) * kDamping;
-  const float npx = xi + nvx * p.dt;
-  const float npy = yi + nvy * p.dt;
-  const float npz = zi + nvz * p.dt;
+  // The rest of the kernel, once for each path: a warp takes one or the
+  // other as a whole, and what only the other path needs is not kept live.
+  auto rows = [&](auto tile_path) {
+    constexpr bool kTile = decltype(tile_path)::value;
+    // --- pass 1: pressure, viscosity, color field (SPHFluid.comp:129-151)
+    float fpx = 0.f, fpy = 0.f, fpz = 0.f;
+    float fvx = 0.f, fvy = 0.f, fvz = 0.f;
+    float gcx = 0.f, gcy = 0.f, gcz = 0.f, lc = 0.f;
+    // One source's records a, b (record index e), branch-free so that the
+    // drain loop can keep several records' loads in flight: one that fails
+    // the exact r < h test, is dead (rho <= 0) or is the row itself adds
+    // zeros.
+    auto pair_with = [&](const float4& a, const float4& b, int e) {
+      const float rx = xi - a.x;
+      const float ry = yi - a.y;
+      const float rz = zi - a.z;
+      const float r2 = rx * rx + ry * ry + rz * rz;
+      const float rinv = rsqrt_approx(fmaxf(r2, 1e-24f));
+      const float r = r2 * rinv;
+      const bool ok = (r < p.h) & (a.w > 0.f) & (e != i);
+      const float presj = fmaxf(p.gas_k * (a.w - p.rho0), 0.f);
+      const float m_over_rho = b.w;
+      const float dcl = p.h - r;
+      const float gmag = ok & (r2 > 0.f) ? p.spiky * dcl * dcl * rinv : 0.f;
+      const float lapw = ok ? p.visc_lap * dcl : 0.f;
+      const float ps = gmag * (-(presi + presj) * 0.5f * m_over_rho);
+      fpx += rx * ps;
+      fpy += ry * ps;
+      fpz += rz * ps;
+      const float vs = m_over_rho * lapw;
+      fvx += (b.x - vxi) * vs;
+      fvy += (b.y - vyi) * vs;
+      fvz += (b.z - vzi) * vs;
+      const float gs = gmag * m_over_rho;
+      gcx += rx * gs;
+      gcy += ry * gs;
+      gcz += rz * gs;
+      lc += vs;
+    };
+    // one queued record
+    auto pair = [&](int e) { pair_with(__ldg(sa + e), __ldg(sb + e), e); };
+    bool spilled = false;
+    if constexpr (kTile) {
+      if (tile_warps != nullptr && lane == 0) atomicAdd(tile_warps, 1);
+      sweep(xi, yi, zi, pair_with);
+    } else {
+      // the one walk: whatever is near either center waits in the queue
+      spilled = walk(both_centers, xi, yi, zi, near1, pair);
+      drain(pair);
+    }
 
-  // --- pass 2: XSPH, fresh self vs stale neighbors (SPHFluid.comp:177-201)
-  float xsx = 0.f, xsy = 0.f, xsz = 0.f, xn = 0.f;
-  // one queued record, branch-free as above: the exact r2 < h2 test
-  auto smooth = [&](int e) {
-    const float4 a = __ldg(sa + e);
-    const float4 b = __ldg(sb + e);
-    const float dx = npx - a.x;
-    const float dy = npy - a.y;
-    const float dz = npz - a.z;
-    const float r2 = dx * dx + dy * dy + dz * dz;
-    const bool ok = (r2 < p.h2) & (a.w > 0.f) & (e != i);
-    const float d = p.h2 - r2;
-    const float wgt = ok ? p.poly6 * d * d * d : 0.f;
-    const float mw = wgt * b.w;
-    xsx += (b.x - nvx) * mw;
-    xsy += (b.y - nvy) * mw;
-    xsz += (b.z - nvz) * mw;
-    xn += wgt;
+    // --- surface tension, gravity, integrate (SPHFluid.comp:156-171)
+    const float glen = sqrtf(gcx * gcx + gcy * gcy + gcz * gcz);
+    float stx = 0.f, sty = 0.f, stz = 0.f;
+    if (glen > kSurfaceThreshold) {
+      const float g = fmaxf(glen, 1e-30f);
+      const float c = -p.st * lc;
+      stx = c * (gcx / g);
+      sty = c * (gcy / g);
+      stz = c * (gcz / g);
+    }
+    const float rs = fmaxf(rhoi, 1e-12f);
+    const float ax = (fpx + p.mu * fvx + p.gx * rhoi + stx) / rs;
+    const float ay = (fpy + p.mu * fvy + p.gy * rhoi + sty) / rs;
+    const float az = (fpz + p.mu * fvz + p.gz * rhoi + stz) / rs;
+    const float nvx = (vxi + ax * p.dt) * kDamping;
+    const float nvy = (vyi + ay * p.dt) * kDamping;
+    const float nvz = (vzi + az * p.dt) * kDamping;
+    const float npx = xi + nvx * p.dt;
+    const float npy = yi + nvy * p.dt;
+    const float npz = zi + nvz * p.dt;
+
+    // --- pass 2: XSPH, fresh self vs stale neighbors (SPHFluid.comp:177-201)
+    float xsx = 0.f, xsy = 0.f, xsz = 0.f, xn = 0.f;
+    // one source's records, branch-free as above: the exact r2 < h2 test
+    auto smooth_with = [&](const float4& a, const float4& b, int e) {
+      const float dx = npx - a.x;
+      const float dy = npy - a.y;
+      const float dz = npz - a.z;
+      const float r2 = dx * dx + dy * dy + dz * dz;
+      const bool ok = (r2 < p.h2) & (a.w > 0.f) & (e != i);
+      const float d = p.h2 - r2;
+      const float wgt = ok ? p.poly6 * d * d * d : 0.f;
+      const float mw = wgt * b.w;
+      xsx += (b.x - nvx) * mw;
+      xsy += (b.y - nvy) * mw;
+      xsz += (b.z - nvz) * mw;
+      xn += wgt;
+    };
+    auto smooth = [&](int e) {
+      smooth_with(__ldg(sa + e), __ldg(sb + e), e);
+    };
+    if constexpr (kTile) {
+      sweep(npx, npy, npz, smooth_with);
+    } else {
+      // The queue still holds every source within h + margin of pos + s,
+      // unless the walk had to empty it on the way.  A row whose fresh
+      // position is within 0.9 margin of pos + s has every source within h
+      // of the fresh position among them (the 0.1 margin left over is far
+      // above float32 rounding).  If that holds for the whole warp it reads
+      // the queue again; else it walks again, around the fresh position.
+      const float mx = npx - (xi + 0.5f * sx2);
+      const float my = npy - (yi + 0.5f * sy2);
+      const float mz = npz - (zi + 0.5f * sz2);
+      const bool far =
+          fluid & !(mx * mx + my * my + mz * mz <= 0.81f * margin * margin);
+      if (spilled || __any_sync(kFullWarp, far)) {
+        qaddr = qbase;
+        walk(one_center, npx, npy, npz, p.h2, smooth);
+      }
+      drain(smooth);
+    }
+
+    if (!in) return;
+    if (!fluid) {
+      store_row<kEmit>(i, xi, yi, zi, vxi, vyi, vzi, 0.f, 0.f, 0.f, rhoi,
+                       npos, nvel, acc, per);
+      return;
+    }
+    // --- XSPH apply (SPHFluid.comp:200-201) and CFL cap (:203-207)
+    float vx = nvx, vy = nvy, vz = nvz;
+    if (xn > 0.f) {
+      const float norm = fmaxf(xn, 1e-30f);
+      vx += kXsphCoeff * (xsx / norm);
+      vy += kXsphCoeff * (xsy / norm);
+      vz += kXsphCoeff * (xsz / norm);
+    }
+    const float max_speed = kCflFraction * p.h / fmaxf(p.dt, 1e-6f);
+    const float sp = sqrtf(vx * vx + vy * vy + vz * vz);
+    const float scale = sp > max_speed ? max_speed / fmaxf(sp, 1e-30f) : 1.f;
+
+    store_row<kEmit>(i, npx, npy, npz, vx * scale, vy * scale, vz * scale, ax,
+                     ay, az, rhoi, npos, nvel, acc, per);
   };
-  // The queue still holds every source within h + margin of pos + s,
-  // unless the walk had to empty it on the way.  A row whose fresh
-  // position is within 0.9 margin of pos + s has every source within h of
-  // the fresh position among them (the 0.1 margin left over is far above
-  // float32 rounding).  If that holds for the whole warp it reads the
-  // queue again; else it walks again, around the fresh position.
-  const float mx = npx - (xi + 0.5f * sx2);
-  const float my = npy - (yi + 0.5f * sy2);
-  const float mz = npz - (zi + 0.5f * sz2);
-  const bool far =
-      fluid & !(mx * mx + my * my + mz * mz <= 0.81f * margin * margin);
-  if (spilled || __any_sync(kFullWarp, far)) {
-    qaddr = qbase;
-    walk(one_center, npx, npy, npz, p.h2, smooth);
+  if (tile) {
+    rows(std::true_type{});
+  } else {
+    rows(std::false_type{});
   }
-  drain(smooth);
-
-  if (!in) return;
-  if (!fluid) {
-    store_row<kEmit>(i, xi, yi, zi, vxi, vyi, vzi, 0.f, 0.f, 0.f, rhoi, npos,
-                     nvel, acc, per);
-    return;
-  }
-  // --- XSPH apply (SPHFluid.comp:200-201) and CFL cap (:203-207)
-  float vx = nvx, vy = nvy, vz = nvz;
-  if (xn > 0.f) {
-    const float norm = fmaxf(xn, 1e-30f);
-    vx += kXsphCoeff * (xsx / norm);
-    vy += kXsphCoeff * (xsy / norm);
-    vz += kXsphCoeff * (xsz / norm);
-  }
-  const float max_speed = kCflFraction * p.h / fmaxf(p.dt, 1e-6f);
-  const float sp = sqrtf(vx * vx + vy * vy + vz * vz);
-  const float scale = sp > max_speed ? max_speed / fmaxf(sp, 1e-30f) : 1.f;
-
-  store_row<kEmit>(i, npx, npy, npz, vx * scale, vy * scale, vz * scale, ax,
-                   ay, az, rhoi, npos, nvel, acc, per);
 }
 
 int grid_for(int n) { return (n + kBlock - 1) / kBlock; }
@@ -536,14 +704,14 @@ extern "C" int sph_force_xsph(const int* key, const float* src, int src_rows,
                               const int* ghost_end, int has_ghosts,
                               const SphSweepParams* params, int nx,
                               int ny, int nz, float* npos, float* nvel,
-                              float* acc, void* stream) {
+                              float* acc, void* stream, int* tile_warps) {
   if (n > 0) {
     const float4* sa = reinterpret_cast<const float4*>(src);
     force_xsph_kernel<false><<<grid_for(n), kBlock, 0,
                                static_cast<cudaStream_t>(stream)>>>(
         key, sa, sa + src_rows, cell_start, cell_end, n, ghost_start,
         ghost_end, has_ghosts, SphGrid{nx, ny, nz}, params, npos, nvel, acc,
-        nullptr);
+        nullptr, tile_warps);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -555,14 +723,14 @@ extern "C" int sph_force_xsph_emit(const int* key, const float* src,
                                    const int* ghost_end, int has_ghosts,
                                    const SphSweepParams* params, int nx,
                                    int ny, int nz, float* per,
-                                   void* stream) {
+                                   void* stream, int* tile_warps) {
   if (n > 0) {
     const float4* sa = reinterpret_cast<const float4*>(src);
     force_xsph_kernel<true><<<grid_for(n), kBlock, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         key, sa, sa + src_rows, cell_start, cell_end, n, ghost_start,
         ghost_end, has_ghosts, SphGrid{nx, ny, nz}, params, nullptr, nullptr,
-        nullptr, per);
+        nullptr, per, tile_warps);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -65,7 +65,12 @@ int sph_force_xsph(const int* key, const float* src, int src_rows,
                    const int* ghost_start, const int* ghost_end,
                    int has_ghosts, const SphSweepParams* params, int nx,
                    int ny, int nz, float* npos, float* nvel, float* acc,
-                   void* stream);
+                   void* stream, int* tile_warps);
+
+// tile_warps: null (the main path), or an int in device memory to which
+// each warp of 32 rows that takes the kernel's tile path (all 32 rows fluid
+// and in one cell, or in two cells side by side in x) adds 1, with one
+// atomicAdd.
 
 // The same sweep, its outputs packed with rho into per [n][16] float32:
 // cols 0:3 npos, 3:6 nvel, 6:9 acc, 9 rho (the input), 10:16 zero.
@@ -73,7 +78,8 @@ int sph_force_xsph_emit(const int* key, const float* src, int src_rows,
                         const int* cell_start, const int* cell_end, int n,
                         const int* ghost_start, const int* ghost_end,
                         int has_ghosts, const SphSweepParams* params,
-                        int nx, int ny, int nz, float* per, void* stream);
+                        int nx, int ny, int nz, float* per, void* stream,
+                        int* tile_warps);
 
 #ifdef __cplusplus
 }

@@ -137,11 +137,13 @@ def library() -> ctypes.CDLL:
     lib.sph_density.argtypes = [p, p, p, p, p, i, p, p, p, p, p, i, i, i, p,
                                 p, p, i, p]
     lib.sph_density.restype = i
+    # the force sweeps' last argument, the tile counter, is a device
+    # pointer that may be null
     lib.sph_force_xsph.argtypes = [p, p, i, p, p, i, p, p, i, p, i, i, i, p,
-                                   p, p, p]
+                                   p, p, p, p]
     lib.sph_force_xsph.restype = i
     lib.sph_force_xsph_emit.argtypes = [p, p, i, p, p, i, p, p, i, p, i, i,
-                                        i, p, p]
+                                        i, p, p, p]
     lib.sph_force_xsph_emit.restype = i
     lib.sph_container.argtypes = [ctypes.POINTER(ContainerRowsC),
                                   ctypes.POINTER(ContainerParamsC), i, i, i,

@@ -463,13 +463,50 @@ def _force_sources(key, pos, vel, rho, cell_start, cell_end,
     return sources
 
 
+def tile_warp_mask(key: torch.Tensor, num_cells: int, nx: int
+                   ) -> torch.Tensor:
+    """Which warps of ``force_xsph_kernel`` take its tile path, [N // 32]
+    bool: of the sorted rows' aligned groups of 32 (the kernel's warps; a
+    partial last one never does), those whose rows are all fluid (``key <
+    num_cells``) and of one cell, or of two cells side by side in x (keys
+    k and k + 1 in one grid row of ``nx`` cells).  Plain torch, on any
+    device."""
+    w = key[:key.shape[0] // 32 * 32].reshape(-1, 32)
+    k0 = w[:, :1]
+    pair = (w == k0 + 1) & (k0 % nx + 1 < nx)
+    return ((w == k0) | pair).all(1) & (w[:, 0] < num_cells)
+
+
+def tile_warp_count(key: torch.Tensor, num_cells: int, nx: int) -> int:
+    """How many warps take the force kernel's tile path
+    (:func:`tile_warp_mask`)."""
+    return int(tile_warp_mask(key, num_cells, nx).sum())
+
+
+def _tile_counter(tile_warps: Optional[torch.Tensor], key, pv: SweepParams):
+    """The force kernels' counter argument: null, or the address of
+    ``tile_warps``, one int32 on the key's device; on CPU tensors the plain
+    count is added to it here."""
+    if tile_warps is None:
+        return None
+    build.check_tensor("tile_warps", tile_warps, torch.int32, (1,),
+                       key.device)
+    if key.device.type == "cpu":
+        tile_warps += tile_warp_count(key, pv.num_cells, pv.nx)
+    return tile_warps.data_ptr()
+
+
 def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
                ghosts: Optional[GhostRows] = None,
-               sources: Optional[torch.Tensor] = None):
+               sources: Optional[torch.Tensor] = None,
+               tile_warps: Optional[torch.Tensor] = None):
     """(npos, nvel, acc) [N,3] of the sorted rows; non-fluid rows pass
     through (npos = pos, nvel = vel, acc = 0).  ``sources`` are the source
     records of ``pos``, ``vel``, ``rho`` and ``ghosts`` when the caller has
-    them (:func:`density_sources`); the kernel reads only those."""
+    them (:func:`density_sources`); the kernel reads only those.  Given
+    ``tile_warps`` (one int32), the warps that took the kernel's tile path
+    are added to it (:func:`tile_warp_count`)."""
+    counter = _tile_counter(tile_warps, key, pv)
     if key.device.type == "cpu":
         return force_xsph_plain(key, pos, vel, rho, cell_start, cell_end, pv,
                                 ghosts)
@@ -483,16 +520,18 @@ def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
         key.data_ptr(), src.data_ptr(), src.shape[1], cell_start.data_ptr(),
         cell_end.data_ptr(), key.shape[0], *_ghost_args(ghosts),
         *c_params(pv), npos.data_ptr(), nvel.data_ptr(), acc.data_ptr(),
-        torch.cuda.current_stream(key.device).cuda_stream)
+        torch.cuda.current_stream(key.device).cuda_stream, counter)
     build.launched(LAUNCHES, "force_xsph", err)
     return npos, nvel, acc
 
 
 def force_xsph_emit(key, pos, vel, rho, cell_start, cell_end,
                     pv: SweepParams, ghosts: Optional[GhostRows] = None,
-                    sources: Optional[torch.Tensor] = None):
+                    sources: Optional[torch.Tensor] = None,
+                    tile_warps: Optional[torch.Tensor] = None):
     """per [N, 16] of the sorted rows: cols 0:3 npos, 3:6 nvel, 6:9 acc
     (as ``force_xsph``), 9 rho (the input), 10:16 zero."""
+    counter = _tile_counter(tile_warps, key, pv)
     if key.device.type == "cpu":
         return force_xsph_emit_plain(key, pos, vel, rho, cell_start,
                                      cell_end, pv, ghosts)
@@ -504,7 +543,8 @@ def force_xsph_emit(key, pos, vel, rho, cell_start, cell_end,
     err = lib.sph_force_xsph_emit(
         key.data_ptr(), src.data_ptr(), src.shape[1], cell_start.data_ptr(),
         cell_end.data_ptr(), n, *_ghost_args(ghosts), *c_params(pv),
-        per.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
+        per.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream,
+        counter)
     build.launched(LAUNCHES, "force_xsph_emit", err)
     return per
 

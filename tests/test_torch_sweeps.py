@@ -9,10 +9,15 @@ and on a ghost-shell box with all faces on and with the top face off,
 where the sweeps take the ghost structure as sources; the emitted-row
 transport (``SimConfig.emit_rows``) bit-identical to the default on each;
 and the force kernel's source records (``pack_sources``,
-``density_sources``) against the same oracle.
+``density_sources``) against the same oracle; and the force kernel's tile
+rule (``tile_warp_count``: aligned warps of 32 rows in one fluid cell or
+two side by side in x) on the blocking fixtures, built to break a kernel's
+blocking.
 
 CUDA (marker ``cuda``, skipped without a card): each kernel against its
-plain version; the container pass (``csrc/container.cu``) in its three
+plain version; the force kernels' tile-path counter against
+``tile_warp_count``, and a crowded cell's rows bit-equal whichever path
+their warps take; the container pass (``csrc/container.cu``) in its three
 modes, reassembly, container and both, bit-identical to the plain torch
 ops on the card for a box at zero angles, with and without ghosts, from
 separate output columns and from the emitted rows.  JAX is imported inside the fixtures that need it, so the
@@ -626,6 +631,10 @@ def blocking_case(name, crowd=CROWD_CPU):
         spawn = _lattice_spawn(full[:131], 1, 15)
     elif name == "no_fluid":     # an empty grid: ghosts only
         spawn = TS.spawn_ghost_box_shell(h=LATTICE_H, box_half=LATTICE_HALF)
+    elif name == "crowded_ghost_face":   # the crowded cell against the -Y
+        spawn = TS.concat_spawns(                  # face's ghosts
+            _lattice_spawn(full, 2, 20, crowd=crowd),
+            TS.spawn_ghost_box_shell(h=LATTICE_H, box_half=LATTICE_HALF))
     elif name == "ghosts_some_faces":   # -X, -Y, +Z only
         spawn = TS.concat_spawns(
             _lattice_spawn(full, 2, 16),
@@ -637,7 +646,8 @@ def blocking_case(name, crowd=CROWD_CPU):
 
 
 BLOCKING = ["full_rows", "straddle", "crowded_cell", "single", "ragged",
-            "no_fluid", "ghosts_some_faces", "queue_edge", "movers"]
+            "no_fluid", "ghosts_some_faces", "queue_edge", "movers",
+            "crowded_ghost_face"]
 
 
 def blocking_inputs(name, device="cpu", crowd=CROWD_CPU):
@@ -673,7 +683,8 @@ def test_blocking_fixtures_are_what_they_claim():
         counts = (ce - cs).numpy().reshape(8, 8, 8)      # [y, z, x]
         sizes[name] = (int((key < pv.num_cells).sum()), int(counts.max()),
                        ghosts is not None)
-        if name in ("full_rows", "crowded_cell", "ghosts_some_faces"):
+        if name in ("full_rows", "crowded_cell", "ghosts_some_faces",
+                    "crowded_ghost_face"):
             assert (counts[:3] >= 2).all()    # x = 0 and x = 7 occupied
     assert sizes["full_rows"] == (384, 2, False)
     assert sizes["straddle"] == (32, 1, False)
@@ -684,6 +695,124 @@ def test_blocking_fixtures_are_what_they_claim():
     assert sizes["ghosts_some_faces"] == (384, 2, True)
     assert sizes["queue_edge"] == (384 + QUEUE_EDGE, 2 + QUEUE_EDGE, False)
     assert sizes["movers"] == (384, 2, False)
+    assert sizes["crowded_ghost_face"] == (384 + CROWD_CPU, 2 + CROWD_CPU,
+                                           True)
+    # the crowded cell's rows have active ghosts within h: its warps' ghost
+    # ranges carry sources
+    (key, pos, _, _, cs, ce, pv, ghosts), s = blocking_inputs(
+        "crowded_ghost_face")
+    crowd = key == int(torch.argmax(ce - cs))
+    assert int(crowd.sum()) == 2 + CROWD_CPU
+    assert int((torch.cdist(pos[crowd], ghosts.pos) < pv.h).sum()) > 300
+
+
+def whole_warps(cs, ce, nx):
+    """Aligned groups of 32 rows that one cell, or two cells side by side
+    in x, hold whole, from the cells' ranges alone."""
+    cell = torch.repeat_interleave(torch.arange(cs.shape[0]), ce - cs)
+    w = cell[:cell.shape[0] // 32 * 32].reshape(-1, 32)
+    first, last = w[:, 0], w[:, -1]
+    return int(((last == first) | ((last == first + 1)
+                                   & (first % nx != nx - 1))).sum())
+
+
+@pytest.mark.parametrize("name", BLOCKING)
+def test_tile_warp_count_on_blocking_fixtures(name):
+    """The force kernel's tile rule, reckoned from the sorted keys: the
+    warps that a cell or two cells side by side hold whole (the crowded
+    cells' warps, those that straddle the crowded cell and its x neighbours
+    among them, and no others: every other cell holds 2 rows, or 1)."""
+    (key, _, _, _, cs, ce, pv, _), _ = blocking_inputs(name)
+    got = sweeps.tile_warp_count(key, pv.num_cells, pv.nx)
+    assert got == whole_warps(cs, ce, pv.nx)
+    if name in ("crowded_cell", "crowded_ghost_face"):
+        assert got >= (2 + CROWD_CPU) // 32 - 1 > 0
+    elif name != "queue_edge":
+        assert got == 0
+    counter = torch.zeros(1, dtype=torch.int32)
+    sweeps.force_xsph(*blocking_inputs(name)[0], tile_warps=counter)
+    assert int(counter) == got
+
+
+def test_tile_rule_ignores_partial_warps_and_non_fluid_rows():
+    """Only whole aligned warps of one fluid key, or of two keys side by
+    side in one grid row: not a partial last warp, not 32 ghost or padding
+    rows (key num_cells), not 32 rows of one key that straddle two aligned
+    warps, not keys apart or across the end of a grid row, not three
+    keys."""
+    nc, nx = 512, 8
+    k = torch.tensor([5] * 32 + [7] * 40, dtype=torch.int32)
+    assert sweeps.tile_warp_count(k, nc, nx) == 2    # the last 8 are partial
+    assert sweeps.tile_warp_count(k[:63], nc, nx) == 1
+    assert sweeps.tile_warp_count(k[:31], nc, nx) == 0
+    pad = torch.full((64,), nc, dtype=torch.int32)
+    assert sweeps.tile_warp_count(torch.cat([k[:32], pad]), nc, nx) == 1
+    shifted = torch.tensor([3] * 16 + [5] * 32 + [9] * 16, dtype=torch.int32)
+    assert sweeps.tile_warp_count(shifted, nc, nx) == 0
+    pair = torch.tensor([4] * 16 + [5] * 16 + [6] * 20 + [7] * 12,
+                        dtype=torch.int32)
+    assert sweeps.tile_warp_count(pair, nc, nx) == 2
+    wraps = torch.tensor([7] * 16 + [8] * 16, dtype=torch.int32)
+    assert sweeps.tile_warp_count(wraps, nc, nx) == 0
+    three = torch.tensor([4] * 10 + [5] * 12 + [6] * 10, dtype=torch.int32)
+    assert sweeps.tile_warp_count(three, nc, nx) == 0
+    last = torch.tensor([nc - 1] * 32, dtype=torch.int32)
+    assert sweeps.tile_warp_count(last, nc, nx) == 1
+    assert sweeps.tile_warp_count(torch.zeros(0, dtype=torch.int32), nc,
+                                  nx) == 0
+    assert torch.equal(sweeps.tile_warp_mask(pair, nc, nx),
+                       torch.tensor([True, True]))
+
+
+def pair_cells_inputs(crowd, far=0, device="cpu"):
+    """Sweep inputs of two crowded cells side by side in x: 2 rows in every
+    cell of the lower three layers, ``crowd`` more in each of (4, 1, 4) and
+    (5, 1, 4) (keys 100 and 101), and ``far`` rows in cell (0, 0, 0), which
+    shift the others against the warps.  The density is made from each
+    row's ``orig_id``, within 1% of rest.  Returns (args, state, the
+    crowd's mask)."""
+    spawn = TS.concat_spawns(
+        _lattice_spawn(_cells(range(8), range(3), range(8)), 2, 22,
+                       crowd=crowd, crowd_cell=(4, 1, 4)),
+        _lattice_spawn(np.zeros((0, 3)), 0, 23, crowd=crowd,
+                       crowd_cell=(5, 1, 4)))
+    if far:     # after the others, so that their orig_id stay the same
+        spawn = TS.concat_spawns(spawn, _lattice_spawn([(0, 0, 0)], far, 21))
+    state = TS.state_from_spawn(spawn, device=device)
+    params = TP.FluidParams.default(
+        device=device, h=LATTICE_H,
+        box_half=np.asarray(LATTICE_HALF, np.float32)).derive_mass()
+    (key, pos, vel, cs, ce), s, pv, ghosts = sweep_inputs(state, params,
+                                                         (8, 8, 8))
+    n = spawn.count
+    u = torch.as_tensor(np.random.default_rng(5).random(n).astype(
+        np.float32), device=device)[s.orig_id.long().clamp(0, n - 1)]
+    rho = torch.where(key < pv.num_cells, 1000.0 * (1.0 + 0.01 * u),
+                      torch.zeros((), device=device))
+    crowd_rows = (key == 100) | (key == 101)
+    return (key, pos, vel, rho, cs, ce, pv, ghosts), s, crowd_rows
+
+
+def test_tile_rule_takes_pairs_of_cells():
+    """Two crowded cells side by side in x: the warps that straddle them
+    take the tile path too, the rule agrees with the cells' ranges, and the
+    plain force sweep there matches the all-pairs one."""
+    from sph_tpu_torch.physics import brute_kernels as BK
+    (key, pos, vel, rho, cs, ce, pv, g), s, crowd = pair_cells_inputs(160)
+    assert int(crowd.sum()) == 2 * 162      # key 100 from row 200 to 362
+    mask = sweeps.tile_warp_mask(key, pv.num_cells, pv.nx)
+    w = key[:mask.shape[0] * 32].reshape(-1, 32)
+    assert int((mask & (w[:, 0] != w[:, -1])).sum()) == 1
+    # rows 200 to 524: the 9 aligned warps from row 224 to row 512
+    assert int(mask.sum()) == whole_warps(cs, ce, pv.nx) == 9
+    npos, nvel, acc = sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv, g)
+    m = s.fluid_mask()
+    pres = torch.clamp_min(pv.gas_k * (rho - pv.rho0), 0.0)
+    want = BK.force_plain(pos, vel, rho, pres, m.float(), pv)
+    np.testing.assert_allclose(npos[m], want[0][m], rtol=0, atol=POS_ATOL)
+    np.testing.assert_allclose(nvel[m], want[1][m], rtol=0, atol=VEL_ATOL)
+    np.testing.assert_allclose(acc[m], want[2][m], rtol=ACC_RTOL,
+                               atol=ACC_ATOL)
 
 
 def test_queue_edge_and_movers_reach_the_kernels_other_paths():
@@ -845,3 +974,59 @@ def test_force_kernels_on_blocking_fixtures_on_cuda(cuda, name):
     for a, b in zip(sweeps.force_xsph(*args), got):
         assert torch.equal(a, b)
     assert torch.equal(sweeps.force_xsph_emit(*args), per)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", BLOCKING)
+def test_force_kernels_count_tile_warps_on_cuda(cuda, name):
+    """Each force kernel's counter equals ``tile_warp_count``, and its
+    outputs with the counter are bit-equal to those without (the main path
+    passes none)."""
+    args, _ = blocking_inputs(name, device=cuda, crowd=CROWD_CARD)
+    want = sweeps.tile_warp_count(args[0], args[6].num_cells, args[6].nx)
+    if name in ("crowded_cell", "crowded_ghost_face"):
+        assert want >= (2 + CROWD_CARD) // 32 - 1
+    plain = sweeps.force_xsph(*args)
+    emit = sweeps.force_xsph_emit(*args)
+    counter = torch.zeros(1, dtype=torch.int32, device=cuda)
+    got = sweeps.force_xsph(*args, tile_warps=counter)
+    assert int(counter) == want
+    counter.zero_()
+    per = sweeps.force_xsph_emit(*args, tile_warps=counter)
+    assert int(counter) == want
+    for a, b in zip(got, plain):
+        assert torch.equal(a, b)
+    assert torch.equal(per, emit)
+
+
+@pytest.mark.cuda
+def test_force_kernel_rows_do_not_depend_on_their_warps_path_on_cuda(cuda):
+    """Two crowded cells side by side, shifted against the warps by 0, 8,
+    16 and 24 rows put in a far corner cell: their rows move between tile
+    warps of one cell, tile warps of two and queue warps, and their outputs
+    stay bit-equal (every path adds a row's sources in the same order, and
+    a warp of two cells reads no source outside a row's own 3 x 3 x 3
+    block); each launch matches the plain version."""
+    outs, paths, pair_warps = [], [], 0
+    for shift in (0, 8, 16, 24):
+        args, s, crowd = pair_cells_inputs(CROWD_CARD // 2, far=shift,
+                                           device=cuda)
+        key, pv = args[0], args[6]
+        got = sweeps.force_xsph(*args)
+        want = sweeps.force_xsph_plain(*args)
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=POS_ATOL)
+        torch.testing.assert_close(got[1], want[1], rtol=0, atol=VEL_ATOL)
+        torch.testing.assert_close(got[2], want[2], rtol=ACC_RTOL,
+                                   atol=ACC_ATOL)
+        order = torch.argsort(s.orig_id[crowd])
+        outs.append(torch.cat(got, 1)[crowd][order])
+        tile = sweeps.tile_warp_mask(key, pv.num_cells, pv.nx)
+        w = key[:32 * tile.shape[0]].reshape(-1, 32)
+        pair_warps += int((tile & (w[:, 0] != w[:, -1])).sum())
+        row_tile = torch.zeros(key.shape[0], dtype=torch.bool, device=cuda)
+        row_tile[:32 * tile.shape[0]] = tile.repeat_interleave(32)
+        paths.append(row_tile[crowd][order])
+    for got in outs[1:]:
+        assert torch.equal(got, outs[0])
+    flips = torch.stack(paths).any(0) & ~torch.stack(paths).all(0)
+    assert int(flips.sum()) >= 32 and pair_warps >= 4
