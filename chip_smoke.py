@@ -325,24 +325,6 @@ def check_close(name, got, want, rtol, atol) -> float:
     return max_err(got, want)
 
 
-def counted_modules():
-    """The modules whose wrappers count their kernels' launches."""
-    from sph_tpu_torch.app import microbench, proto_expand
-    from sph_tpu_torch.neighbors import cells, sweeps
-    from sph_tpu_torch.physics import brute_kernels, constraints
-    return (cells, sweeps, constraints, brute_kernels, microbench,
-            proto_expand)
-
-
-def reset_launches() -> None:
-    for mod in counted_modules():
-        mod.reset_launches()
-
-
-def launches() -> dict:
-    return {k: v for mod in counted_modules() for k, v in mod.LAUNCHES.items()}
-
-
 def bound(nbytes: float, ops: float):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate
     and the operations over the float32 rate."""
@@ -457,6 +439,7 @@ def check_cell_tables(config, state, params, cfg, ghosts):
     fluid's (skey, order), the carried columns and the built rows."""
     import torch
     from sph_tpu_torch.neighbors import cells
+    from sph_tpu_torch.utils import trace
 
     dims, nc = cfg.grid_dims, cfg.num_cells
     fluid = cells.fluid_sort(state, params, dims)
@@ -473,11 +456,11 @@ def check_cell_tables(config, state, params, cfg, ghosts):
         log(f"{config} cell_table {which}: bit-equal ({int(skey.shape[0])} "
             f"rows, {nc} cells, {int((want.cell_end > want.cell_start).sum())}"
             f" occupied, {len(cols)} carried columns)")
-    cells.reset_launches()
+    since = trace.launches()
     r = cells.build(state, params, dims)
-    if cells.LAUNCHES["cell_table"] != 1:
-        raise AssertionError(f"{config}: cells.build made "
-                             f"{cells.LAUNCHES['cell_table']} launches")
+    if trace.launches(since).get("cell_table", 0) != 1:
+        raise AssertionError(f"{config}: cells.build made launches "
+                             f"{trace.launches(since)}")
     for f, col in zip(names, carry):
         if not torch.equal(getattr(r.state, f), col[fluid[1]]):
             raise AssertionError(f"{config}: cells.build's {f} is not the "
@@ -683,6 +666,7 @@ def phase_container(dev, config):
     from sph_tpu_torch.app.microbench import time_ms
     from sph_tpu_torch.neighbors import cells, sweeps
     from sph_tpu_torch.physics import constraints
+    from sph_tpu_torch.utils import trace
 
     state, params, cfg = configs.build(config, device=dev)
     if bool(params.box_euler_deg.any()) or params.shape_type != 0:
@@ -739,12 +723,12 @@ def phase_container(dev, config):
     }
     out = {}
     for mode, (kernel, plain, nbytes) in modes.items():
-        constraints.reset_launches()
+        since = trace.launches()
         got = kernel()
         torch.cuda.synchronize()
-        if constraints.LAUNCHES["container"] != 1:
+        if trace.launches(since).get("container", 0) != 1:
             raise AssertionError(f"{config} container {mode}: launches "
-                                 f"{constraints.LAUNCHES}")
+                                 f"{trace.launches(since)}")
         same_fields(f"{config} container {mode}", got, plain())
         moved = 0 if mode == "reassemble" else int(
             (got.pos != solved.pos).any(-1).sum())
@@ -1188,6 +1172,7 @@ def phase_emit(dev, config):
     from sph_tpu_torch.engine.step import SceneBuffers, run_substeps
     from sph_tpu_torch.neighbors import cells, sweeps
     from sph_tpu_torch.physics import constraints
+    from sph_tpu_torch.utils import trace
 
     state, params, cfg = configs.build(config, device=dev)
     state = configs.frame_prologue(config, params, FRAME_SUBSTEPS)(state)
@@ -1254,15 +1239,15 @@ def phase_emit(dev, config):
 
     runs = {}
     for emit in (True, False):
-        reset_launches()
+        since = trace.launches()
         runs[emit], _ = run_substeps(
             state, params, SceneBuffers.create(cfg), params.dt,
             FRAME_SUBSTEPS, dataclasses.replace(cfg, emit_rows=emit))
         torch.cuda.synchronize()
-        got_n = launches()
+        got_n = trace.launches(since)
         want_n = {"force_xsph_emit": FRAME_SUBSTEPS if emit else 0,
                   "force_xsph": 0 if emit else FRAME_SUBSTEPS}
-        if {k: got_n[k] for k in want_n} != want_n:
+        if {k: got_n.get(k, 0) for k in want_n} != want_n:
             raise AssertionError(f"{config} emit_rows={emit}: launches "
                                  f"{got_n}, expected {want_n}")
     for f in ("pos", "vel", "acc", "density", "pressure", "foam", "orig_id"):
@@ -1286,11 +1271,12 @@ def phase_micro(dev):
     import torch
     from sph_tpu_torch.app.microbench import time_ms
     from sph_tpu_torch.app import microbench, proto_expand
+    from sph_tpu_torch.utils import trace
 
-    reset_launches()
+    since = trace.launches()
     microbench.main([])
     res = proto_expand.main()
-    counts = launches()
+    counts = trace.launches(since)
     # the smoke check's one launch; the expand's check and its timing
     # (one warm-up, microbench.REPS timed)
     expect = dict.fromkeys(counts, 0)
@@ -1318,16 +1304,17 @@ def micro_smoke(dev, shape) -> dict:
     import torch
     from sph_tpu_torch.app import microbench
     from sph_tpu_torch.app.microbench import time_ms
+    from sph_tpu_torch.utils import trace
 
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(
         shape).astype(np.float32), device=dev)
-    reset_launches()
+    since = trace.launches()
     if not torch.equal(microbench.smoke(x), microbench.smoke_plain(x)):
         raise AssertionError(f"smoke {shape}: kernel is not bit-equal to "
                              f"the plain version")
-    if launches()["smoke"] != 1:
-        raise AssertionError(f"smoke {shape}: {launches()['smoke']} launches "
-                             f"in one call")
+    if trace.launches(since).get("smoke", 0) != 1:
+        raise AssertionError(f"smoke {shape}: launches "
+                             f"{trace.launches(since)} in one call")
     times = (time_ms(lambda: microbench.smoke(x), 50),
              time_ms(lambda: microbench.smoke_plain(x), 50))
     lib_ms = time_ms(lambda: x * 8.0, 50)
@@ -1346,18 +1333,19 @@ def micro_expand(dev, nrow, s, maxr) -> dict:
     import torch
     from sph_tpu_torch.app import proto_expand
     from sph_tpu_torch.app.microbench import time_ms
+    from sph_tpu_torch.utils import trace
 
     starts, rows, targets = proto_expand.synth(nrow, s, maxr)
     st = torch.as_tensor(starts, device=dev)
     rw = torch.as_tensor(rows, device=dev)
     want = proto_expand.expand_plain(st, rw, s)
-    reset_launches()
+    since = trace.launches()
     if not torch.equal(proto_expand.expand(st, rw, s), want):
         raise AssertionError(f"expand ({nrow} rows, S={s}): kernel is not "
                              f"bit-equal to the plain version")
-    if launches()["expand"] != 1:
-        raise AssertionError(f"expand ({nrow} rows): {launches()['expand']} "
-                             f"launches in one call")
+    if trace.launches(since).get("expand", 0) != 1:
+        raise AssertionError(f"expand ({nrow} rows): launches "
+                             f"{trace.launches(since)} in one call")
     if nrow == proto_expand.sizes()[0] and not np.array_equal(
             want.cpu().numpy(), proto_expand.oracle(starts, rows, targets, s)):
         raise AssertionError("expand: plain version differs from the "
@@ -1662,6 +1650,7 @@ def phase_main(dev, config):
     from sph_tpu_torch.core.params import rotation_matrix
     from sph_tpu_torch.engine.step import (SceneBuffers, neighbor_aux,
                                            run_substeps, substep)
+    from sph_tpu_torch.utils import trace
 
     torch.cuda.reset_peak_memory_stats(dev)
     start, params, cfg = configs.build(config)
@@ -1678,7 +1667,7 @@ def phase_main(dev, config):
     buffers = SceneBuffers.create(cfg)
     torch.cuda.synchronize()
 
-    reset_launches()
+    since = trace.launches()
     for frame in range(FRAMES):
         if frame == 1:
             torch.cuda.synchronize()
@@ -1687,7 +1676,7 @@ def phase_main(dev, config):
                                       FRAME_SUBSTEPS, cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = launches()
+    counts = trace.launches(since)
 
     total = FRAMES * FRAME_SUBSTEPS
     timed = total - FRAME_SUBSTEPS
@@ -1947,6 +1936,7 @@ def phase_scene(dev, name):
     from sph_tpu_torch.app import scene_paths
     from sph_tpu_torch.core.device import card_line
     from sph_tpu_torch.engine.step import scene_stages
+    from sph_tpu_torch.utils import trace
 
     torch.cuda.reset_peak_memory_stats(dev)
     scene = scene_paths.build(name)
@@ -1964,7 +1954,7 @@ def phase_scene(dev, name):
     dt = torch.tensor(s.time_step, dtype=torch.float32, device=dev)
     torch.cuda.synchronize()
 
-    reset_launches()
+    since = trace.launches()
     for frame in range(FRAMES):
         if frame == 1:
             torch.cuda.synchronize()
@@ -1981,13 +1971,14 @@ def phase_scene(dev, name):
                               REF_RHO_FIRST_FRAME[name])
             # the first frame's launches are the path's; those of the
             # comparison that follows are not
-            first = launches()
+            first = trace.launches(since)
             check_scene_kernels(f"{name} after the first frame", state,
                                 params, cfg, dt)
-            reset_launches()
+            since = trace.launches()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = {k: first[k] + v for k, v in launches().items()}
+    later = trace.launches(since)
+    counts = {k: first.get(k, 0) + later.get(k, 0) for k in {*first, *later}}
 
     total = FRAMES * FRAME_SUBSTEPS
     expect = dict.fromkeys(counts, 0)
@@ -2386,6 +2377,7 @@ def reel_in(dev, tmp):
     from sph_tpu_torch.engine.step import substeps_for_frame
     from sph_tpu_torch.scene import reel
     from sph_tpu_torch.scene import scene as scene_mod
+    from sph_tpu_torch.utils import trace
     from sph_tpu_torch.viz import ssfr, splat
 
     wav = write_track(os.path.join(tmp, "track.wav"))
@@ -2416,7 +2408,7 @@ def reel_in(dev, tmp):
     reel.export_reel = grab
     scene_mod.Scene.update = split.update(scene_mod.Scene.update)
     torch.cuda.reset_peak_memory_stats(dev)
-    reset_launches()
+    since = trace.launches()
     t0 = time.perf_counter()
     printed = io.StringIO()
     try:
@@ -2428,7 +2420,7 @@ def reel_in(dev, tmp):
             setattr(obj, name, fn)
     end = time.perf_counter()
     wall = end - t0
-    counts = launches()
+    counts = trace.launches(since)
     log(f"reel: the entry point printed {printed.getvalue().strip()}")
     scene = grabbed["scene"]
     s = scene.settings
@@ -2591,18 +2583,16 @@ def gallery_in(dev, tmp):
     settle, frame, save_png = gallery.settle, gallery.frame, gallery.save_png
 
     def timed_settle(scene, frames=30):
-        before, captures = launches(), trace.counter("graph.captures")
+        before, captures = trace.launches(), trace.counter("graph.captures")
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         subs = settle(scene, frames)
         stop.record()
-        after = launches()
         settles.append(dict(substeps=subs, events=(start, stop),
                             captures=trace.counter("graph.captures")
                             - captures,
-                            launches={k: after[k] - before.get(k, 0)
-                                      for k in after}))
+                            launches=trace.launches(before)))
         return subs
 
     def timed_frame(scene, zoom=1.0):
@@ -2619,7 +2609,7 @@ def gallery_in(dev, tmp):
 
     gallery.settle, gallery.frame, gallery.save_png = (
         timed_settle, timed_frame, timed_save)
-    reset_launches()
+    since = trace.launches()
     t0 = time.perf_counter()
     printed = io.StringIO()
     try:
@@ -2630,7 +2620,7 @@ def gallery_in(dev, tmp):
         gallery.settle, gallery.frame, gallery.save_png = (
             settle, frame, save_png)
     wall = time.perf_counter() - t0
-    counts = launches()
+    counts = trace.launches(since)
     log(f"gallery: the entry point printed {printed.getvalue().split()}")
     if [name for name, _, _ in shots] != list(gallery.LOOKS) or not (
             len(settles) == len(renders) == len(pngs) == len(shots)):
@@ -2678,13 +2668,14 @@ def gallery_in(dev, tmp):
         host = gallery.frame(cpu, look.zoom)
         host_s = time.perf_counter() - t1
 
-        def trace(far, scene=scene, look=look, name=name):
+        def trace_far(far, scene=scene, look=look, name=name):
             if far.any() and scene.settings.render_mode == 0:
                 zoomed = scene_copy(scene, dev)
                 zoomed.camera.distance *= look.zoom
                 trace_water(zoomed, dev, far, w=gallery.W, h=gallery.H,
                             label=f"gallery {name}")
-        close = frames_close(f"gallery {name}", img, host, trace=trace)
+        close = frames_close(f"gallery {name}", img, host,
+                             trace=trace_far)
         # the three kernels on the look's final rows (after ``counts``, so
         # these launches are not the gallery's)
         dt = torch.tensor(s.time_step, dtype=torch.float32, device=dev)
@@ -2774,6 +2765,7 @@ def parallel_one_rank(dev, tmp, warm, params, cfg, ref):
     import numpy as np
     from sph_tpu_torch.engine.step import substep
     from sph_tpu_torch.parallel import group as G, slabs
+    from sph_tpu_torch.utils import trace
 
     group = G.init(0, 1, "nccl", f"file://{tmp}/rendezvous_one", device=dev)
     try:
@@ -2790,10 +2782,10 @@ def parallel_one_rank(dev, tmp, warm, params, cfg, ref):
             return out
 
         frame()     # the path's warm-up frame (NCCL's first calls)
-        reset_launches()
+        since = trace.launches()
         waits = group.waits
         out, ms = cuda_ms(frame)
-        counts = launches()
+        counts = trace.launches(since)
         frame_waits = (group.waits - waits) / FRAME_SUBSTEPS
         _, syncs = count_syncs(lambda: slabs.substep(
             st, params, ref[1], dt, cfg, scfg, group, aux))
@@ -2806,7 +2798,7 @@ def parallel_one_rank(dev, tmp, warm, params, cfg, ref):
                 "cell engine", got, want, SLAB_TOL)
     expect = dict.fromkeys(("cell_table", "density", "force_xsph"),
                            FRAME_SUBSTEPS)
-    if {k: counts[k] for k in expect} != expect:
+    if {k: counts.get(k, 0) for k in expect} != expect:
         raise AssertionError(f"parallel (a): launches {counts}, expected "
                              f"{expect}")
     _, ref_syncs = count_syncs(lambda: substep(
@@ -2818,7 +2810,7 @@ def parallel_one_rank(dev, tmp, warm, params, cfg, ref):
         f"substep {sum(syncs.values())} ({dict(syncs)}) against the cell "
         f"engine's {sum(ref_syncs.values())} ({dict(ref_syncs)}); "
         f"launches {counts}")
-    return {k: counts[k] for k in expect}
+    return {k: counts.get(k, 0) for k in expect}
 
 
 def parallel_jobs(dev, tmp, warm, params, cfg):
@@ -2954,10 +2946,12 @@ def phase_parallel(dev):
              out["dam_break_8k"][GATHER_SUBSTEPS]), want, GATHER_TOL)
     four = [st["launches"] for st in stats["ghost_1m"]]
     for r, c in enumerate(four):
-        if not (c["density"] == c["force_xsph"] == FRAME_SUBSTEPS
-                and c["cell_table"] in (FRAME_SUBSTEPS, FRAME_SUBSTEPS + 1)):
+        if not (c.get("density") == c.get("force_xsph") == FRAME_SUBSTEPS
+                and c.get("cell_table") in (FRAME_SUBSTEPS,
+                                            FRAME_SUBSTEPS + 1)):
             raise AssertionError(f"parallel (b) rank {r}: launches {c}")
-    return {k: {"one_rank": one[k], "four_ranks": [c[k] for c in four]}
+    return {k: {"one_rank": one[k],
+                "four_ranks": [c.get(k, 0) for c in four]}
             for k in one}
 
 
@@ -3054,7 +3048,7 @@ def main(argv=None) -> int:
     record = {"kernels": [
         {"name": f"{name}_kernel", "route": "cuda", "source": source,
          "replaces": replaces, "config": config,
-         "launches": counts[config][name],
+         "launches": counts[config].get(name, 0),
          "reel_launches": counts["reel"].get(name, 0),
          "gallery_launches": counts["gallery"].get(name, 0),
          **({"parallel_launches": par[name]} if name in par else {}),

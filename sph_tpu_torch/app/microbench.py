@@ -20,19 +20,9 @@ import torch
 
 from sph_tpu_torch.core.device import resolve
 from sph_tpu_torch.native import build
-from sph_tpu_torch.utils import trace
 
 K = 8          # ranks per cell, as the script
 REPS = 20
-
-# Kernel launches since the last reset_launches() — only the CUDA path
-# counts, and only where it launches (``trace.counters``: ``launches.*``).
-LAUNCHES = trace.launch_counts({"smoke": 0})
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def smoke_plain(x: torch.Tensor) -> torch.Tensor:
@@ -61,7 +51,7 @@ def smoke(x: torch.Tensor) -> torch.Tensor:
     err = build.library().sph_smoke(
         x.data_ptr(), out.data_ptr(), x.numel(),
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.launched(LAUNCHES, "smoke", err)
+    build.launched("smoke", err)
     return out
 
 

@@ -24,20 +24,10 @@ import torch
 from sph_tpu_torch.app.microbench import time_ms
 from sph_tpu_torch.core.device import resolve
 from sph_tpu_torch.native import build
-from sph_tpu_torch.utils import trace
 
 F = 8          # payload fields
 WIDTH = 128    # columns of a row of the input: F payload, the target, pad
 SEED = 0
-
-# Kernel launches since the last reset_launches() — only the CUDA path
-# counts, and only where it launches (``trace.counters``: ``launches.*``).
-LAUNCHES = trace.launch_counts({"expand": 0})
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def sizes():
@@ -123,7 +113,7 @@ def expand(starts: torch.Tensor, rows: torch.Tensor,
     err = build.library().sph_expand(
         starts.data_ptr(), rows.data_ptr(), nrow, F, slots, rows.shape[1],
         out.data_ptr(), torch.cuda.current_stream(rows.device).cuda_stream)
-    build.launched(LAUNCHES, "expand", err)
+    build.launched("expand", err)
     return out
 
 

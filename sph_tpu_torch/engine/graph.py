@@ -22,14 +22,13 @@ loaded, cuBLAS is set up and the constants of ``core.device.constant`` are
 made, none of which may happen inside a capture.  A capture that fails
 raises; nothing falls back to eager launches.
 
-Launch counts: the kernel wrappers count their launches when Python calls
-them (``native.build.launched``), and a replay calls none.  So a program
-keeps what its capture counted and adds it once per replay; the warm-up's
-and the capture's own counts are taken off again (the warm-up's launches
-compute nothing the caller gets, and a capture launches nothing).  The
-counters ``graph.captures`` and ``graph.replays`` and the spans
-``sph.graph.*`` of the host's work around a replay are
-``utils/trace.py``'s; none of them runs inside the captured function.
+Launch counts: a program adds the ``launches.*`` counters that moved
+during its capture at each replay, which calls no kernel wrapper; what the
+warm-up and the capture themselves counted is taken off again, since
+neither computes anything the caller gets.  The counters
+``graph.captures`` and ``graph.replays`` and the spans ``sph.graph.*`` of
+the host's work around a replay are ``utils/trace.py``'s; none of them
+runs inside the captured function.
 """
 from __future__ import annotations
 
@@ -39,13 +38,8 @@ from typing import Any, Callable, Hashable, List, Tuple
 
 import torch
 
-from sph_tpu_torch.neighbors import cells, sweeps
-from sph_tpu_torch.physics import brute_kernels, constraints
 from sph_tpu_torch.utils import trace
 
-# the launch counts of the kernels a substep can reach
-COUNTED = (cells.LAUNCHES, sweeps.LAUNCHES, constraints.LAUNCHES,
-           brute_kernels.LAUNCHES)
 # programs kept at once; the oldest goes first (the reel needs two: 33 and
 # 34 substeps)
 MAX_PROGRAMS = 8
@@ -87,15 +81,6 @@ def _unflatten(spec: Hashable, leaves) -> Any:
     return tuple(children) if kind is tuple else kind(*children)
 
 
-def _counts() -> Tuple[dict, ...]:
-    return tuple(dict(d) for d in COUNTED)
-
-
-def _set_counts(saved: Tuple[dict, ...]) -> None:
-    for d, s in zip(COUNTED, saved):
-        d.update(s)
-
-
 class Program:
     """One captured graph of ``fn`` over static copies of its inputs."""
 
@@ -108,7 +93,7 @@ class Program:
         dev = next(iter(devices))
         self.inputs = [t.clone() for t in leaves]
         static = _unflatten(self.spec, iter(self.inputs))
-        saved = _counts()
+        saved = trace.launches()
         self.graph = torch.cuda.CUDAGraph()
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -116,14 +101,14 @@ class Program:
         try:
             with torch.cuda.device(dev), torch.cuda.stream(side):
                 warmup(*static)
-                _set_counts(saved)
+                warm = trace.launches()
                 out = self._capture(fn, static)
-            captured = _counts()
+            self.per_replay = [(f"launches.{k}", n)
+                               for k, n in trace.launches(warm).items()]
         finally:
-            _set_counts(saved)
+            for k, n in trace.launches(saved).items():
+                trace.count(f"launches.{k}", -n)
         main.wait_stream(side)
-        self.per_replay = tuple({k: c[k] - s[k] for k in c}
-                                for c, s in zip(captured, saved))
         self.outputs, self.out_spec = _flatten(out)
         trace.count("graph.captures")
 
@@ -150,9 +135,8 @@ class Program:
             torch._foreach_copy_(self.inputs, leaves)
         with trace.span("sph.graph.replay"):
             self.graph.replay()
-            for d, add in zip(COUNTED, self.per_replay):
-                for k, v in add.items():
-                    d[k] += v
+            for k, n in self.per_replay:
+                trace.count(k, n)
             trace.count("graph.replays")
         with trace.span("sph.graph.clone_out"):
             return _unflatten(self.out_spec,

@@ -8,8 +8,9 @@ first use into ``sph_tpu_torch/_build/``, named by a hash of its sources
 and flags, so an edited source builds anew and an unchanged one is
 loaded as it is.  Each ``.cu`` is compiled by its own ``nvcc``, all at
 once, and the objects are then linked into one shared library.  The
-kernel wrappers share its input check and launch count
-(:func:`check_tensor`, :func:`launched`).
+kernel wrappers share its input check and its launch count
+(:func:`check_tensor`, :func:`launched`): every kernel launch is counted
+there, as the ``utils/trace`` counter ``launches.<kernel>``.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import os
 import shutil
 import subprocess
 import tempfile
+
+from sph_tpu_torch.utils import trace
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -236,8 +239,9 @@ def check_tensor(name: str, t, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
-def launched(counts: dict, name: str, err: int) -> None:
-    """Raise if a launch returned a CUDA error; else count it."""
+def launched(name: str, err: int) -> None:
+    """Raise if a launch of kernel ``name`` returned a CUDA error; else
+    count it as ``launches.<name>``."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    counts[name] += 1
+    trace.count(f"launches.{name}")

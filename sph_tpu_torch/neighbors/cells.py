@@ -29,15 +29,6 @@ from sph_tpu_torch.core.state import ParticleState
 from sph_tpu_torch.native import build as native
 from sph_tpu_torch.utils import trace
 
-# Kernel launches since the last reset_launches() — only the CUDA path
-# counts, and only where it launches (``trace.counters``: ``launches.*``).
-LAUNCHES = trace.launch_counts({"cell_table": 0})
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
 
 def keys_from_coords(c: torch.Tensor, mask: torch.Tensor,
                      dims: Tuple[int, int, int]) -> torch.Tensor:
@@ -148,7 +139,7 @@ def cell_table(skey: torch.Tensor, order: torch.Tensor, pos: torch.Tensor,
     err = native.library().sph_cell_table(
         skey.data_ptr(), order.data_ptr(), n, num_cells, ctypes.byref(arg),
         bounds.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    native.launched(LAUNCHES, "cell_table", err)
+    native.launched("cell_table", err)
     return CellTable(outs[0], outs[1], bounds[:-1], bounds[1:],
                      tuple(outs[2:]))
 

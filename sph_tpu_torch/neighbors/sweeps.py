@@ -47,11 +47,6 @@ from sph_tpu_torch.utils import trace
 # [rows, 9 * widest range] tensors, so this bounds their memory.
 _PLAIN_CHUNK = 8192
 
-# Kernel launches since the last reset_launches() — only the CUDA path
-# counts, and only where it launches (``trace.counters``: ``launches.*``).
-LAUNCHES = trace.launch_counts({"density": 0, "force_xsph": 0,
-                                 "force_xsph_emit": 0})
-
 # The force kernel's queue (kQueue and kMarginFrac in csrc/sweeps.cu): its
 # entries a row, and its margin around the row's predicted position in h.
 # The kernel's results do not depend on them; the scripts that count what
@@ -62,11 +57,6 @@ FORCE_MARGIN = 0.05
 # Columns of force_xsph_emit's rows, as the TPU's emitted rows
 # (pallas_sweeps.py:775): npx npy npz vx vy vz ax ay az rho, then zeros.
 EMIT_COLS = 16
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # The sweep constants in the order of ``SphSweepParams`` (csrc/sweeps.h)
@@ -417,7 +407,7 @@ def _launch_density(key, pos, vel, cell_start, cell_end, pv: SweepParams,
         None if src is None else src.data_ptr(),
         0 if src is None else src.shape[1],
         torch.cuda.current_stream(key.device).cuda_stream)
-    build.launched(LAUNCHES, "density", err)
+    build.launched("density", err)
     return rho, pres
 
 
@@ -521,7 +511,7 @@ def force_xsph(key, pos, vel, rho, cell_start, cell_end, pv: SweepParams,
         cell_end.data_ptr(), key.shape[0], *_ghost_args(ghosts),
         *c_params(pv), npos.data_ptr(), nvel.data_ptr(), acc.data_ptr(),
         torch.cuda.current_stream(key.device).cuda_stream, counter)
-    build.launched(LAUNCHES, "force_xsph", err)
+    build.launched("force_xsph", err)
     return npos, nvel, acc
 
 
@@ -545,7 +535,7 @@ def force_xsph_emit(key, pos, vel, rho, cell_start, cell_end,
         cell_end.data_ptr(), n, *_ghost_args(ghosts), *c_params(pv),
         per.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream,
         counter)
-    build.launched(LAUNCHES, "force_xsph_emit", err)
+    build.launched("force_xsph_emit", err)
     return per
 
 

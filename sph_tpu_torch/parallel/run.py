@@ -19,10 +19,10 @@ list of jobs, each run on every rank in turn:
   rows the emitters respawned on every rank;
 - ``ranks`` (optional): run on ranks ``0 .. ranks-1`` only.
 
-Each rank of a job writes ``DIR/<name>_rank<r>.json``: its rows, its
-launches of each kernel and its ms and host waits a substep over each
-span between checkpoints (CUDA events on the card, the host clock on the
-CPU).
+Each rank of a job writes ``DIR/<name>_rank<r>.json``: its rows, the
+launches of each kernel it launched, and its ms and host waits a substep
+over each span between checkpoints (CUDA events on the card, the host
+clock on the CPU).
 """
 from __future__ import annotations
 
@@ -37,8 +37,8 @@ import torch
 
 from sph_tpu_torch.core import convert
 from sph_tpu_torch.core.params import SimConfig
-from sph_tpu_torch.neighbors import cells, sweeps
 from sph_tpu_torch.parallel import domain, group as G, slabs
+from sph_tpu_torch.utils import trace
 
 
 def save_input(path: str, state: Mapping[str, np.ndarray],
@@ -69,10 +69,6 @@ def config_of(fields: Mapping) -> SimConfig:
         if k in d:
             d[k] = tuple(d[k])
     return SimConfig(**d)
-
-
-def _launch_counts() -> Dict[str, int]:
-    return {**cells.LAUNCHES, **sweeps.LAUNCHES}
 
 
 class _Clock:
@@ -111,8 +107,7 @@ def run_job(job: Mapping, group: G.Group, out: str) -> None:
         run["state"], run["params"], run["buffers"], g.rank, g.world, scfg,
         device=g.device)
     dt = params.dt
-    cells.reset_launches()
-    sweeps.reset_launches()
+    before = trace.launches()
     clock = _Clock(g.device)
     stats: Dict[str, List] = {"rows": [], "ms_per_substep": [],
                               "waits_per_substep": []}
@@ -140,7 +135,7 @@ def run_job(job: Mapping, group: G.Group, out: str) -> None:
             np.savez(os.path.join(out, f"{job['name']}_{k}.npz"),
                      recycled=np.int64(total),
                      **{f"state.{f}": v for f, v in whole.items()})
-    stats["launches"] = _launch_counts()
+    stats["launches"] = trace.launches(before)
     with open(os.path.join(out, f"{job['name']}_rank{g.rank}.json"),
               "w") as f:
         json.dump(stats, f)

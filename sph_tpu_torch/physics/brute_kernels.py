@@ -29,20 +29,10 @@ from sph_tpu_torch.native import build
 from sph_tpu_torch.neighbors.sweeps import (CONST_NAMES, SweepParams,
                                            make_pvec)
 from sph_tpu_torch.physics import common as C
-from sph_tpu_torch.utils import trace
 
 # i rows per chunk of the plain versions: each chunk builds [rows, n]
 # pair tensors, so this bounds their memory.
 _PLAIN_ROWS = 512
-
-# Kernel launches since the last reset_launches() — only the CUDA path
-# counts, and only where it launches (``trace.counters``: ``launches.*``).
-LAUNCHES = trace.launch_counts({"brute_density": 0, "brute_force": 0})
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +152,7 @@ def density_raw(pos, contrib, pv: SweepParams):
     err = lib.sph_brute_density(
         pos.data_ptr(), contrib.data_ptr(), n, pv.consts.data_ptr(),
         rho_raw.data_ptr(), torch.cuda.current_stream(pos.device).cuda_stream)
-    build.launched(LAUNCHES, "brute_density", err)
+    build.launched("brute_density", err)
     return rho_raw
 
 
@@ -181,7 +171,7 @@ def force(pos, vel, rho, pres, contrib, pv: SweepParams):
         contrib.data_ptr(), n, pv.consts.data_ptr(), npos.data_ptr(),
         nvel.data_ptr(), acc.data_ptr(),
         torch.cuda.current_stream(pos.device).cuda_stream)
-    build.launched(LAUNCHES, "brute_force", err)
+    build.launched("brute_force", err)
     return npos, nvel, acc
 
 

@@ -38,19 +38,8 @@ from sph_tpu_torch.core.device import constant
 from sph_tpu_torch.core.params import FluidParams, rotation_matrix
 from sph_tpu_torch.core.state import ParticleState
 from sph_tpu_torch.native import build as native
-from sph_tpu_torch.utils import trace
 
 _EPS = 1e-6
-
-# Launches of the container pass since the last reset_launches(): only the
-# CUDA path counts, where it launches (``trace.counters``:
-# ``launches.container``).
-LAUNCHES = trace.launch_counts({"container": 0})
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _norm(v: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
@@ -362,7 +351,7 @@ def container_pass(state: ParticleState, params: FluidParams,
         ctypes.byref(rows), ctypes.byref(_params_arg(params, dev)), n,
         int(params.shape_type), int(reassemble), int(contain), int(ghosts),
         torch.cuda.current_stream(dev).cuda_stream)
-    native.launched(LAUNCHES, "container", err)
+    native.launched("container", err)
     return state.replace(**out)
 
 

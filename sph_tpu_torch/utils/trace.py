@@ -27,9 +27,10 @@ A **counter** (``count(name)``) always counts, one dict increment:
   under the span ``sph.impulse.wave``), which a configuration with a
   frame prologue runs once a frame before the frame program: the record
   of the kicks where spans are off, as they are by default;
-- ``launches.<kernel>``: the kernel wrappers' launch counts, kept in their
-  modules' ``LAUNCHES`` dicts (registered here by :func:`launch_counts`)
-  and read through :func:`counters`.
+- ``launches.<kernel>``: the kernels' launches, counted where a wrapper
+  launches one (``native/build.launched``, the one counting point) and
+  added by the frame program at each replay (``engine/graph.py``); only
+  the CUDA path counts, so on the CPU every one reads 0.
 
 Nothing here runs inside a captured program: a span or counter there
 would run once, at the capture, and never at a replay.
@@ -47,7 +48,6 @@ _on = False
 _NULL = contextlib.nullcontext()
 _counts: Dict[str, int] = collections.Counter()
 _totals: Dict[str, List[int]] = {}     # name -> [host ns, calls]
-_launch_tables: List[Dict[str, int]] = []
 
 
 def enable(on: bool) -> None:
@@ -96,25 +96,22 @@ def count(name: str, n: int = 1) -> None:
 
 
 def counter(name: str) -> int:
-    """The counter ``name`` (0 if it never counted); launch counts are read
-    through :func:`counters`."""
+    """The counter ``name`` (0 if it never counted)."""
     return _counts[name]
 
 
-def launch_counts(table: Dict[str, int]) -> Dict[str, int]:
-    """Register a module's launch counts (``{kernel: launches}``), which
-    its wrappers keep counting in place; returns ``table``."""
-    _launch_tables.append(table)
-    return table
-
-
 def counters() -> Dict[str, int]:
-    """Every counter: this module's and ``launches.<kernel>`` of each
-    registered launch table."""
-    out = dict(_counts)
-    for table in _launch_tables:
-        out.update((f"launches.{k}", v) for k, v in table.items())
-    return out
+    """Every counter."""
+    return dict(_counts)
+
+
+def launches(since: Optional[Dict[str, int]] = None) -> Dict[str, int]:
+    """``{kernel: launches}`` of the ``launches.<kernel>`` counters, less
+    ``since`` (an earlier reading), of the kernels whose count moved."""
+    since = since or {}
+    moved = ((k[len("launches."):], n) for k, n in _counts.items()
+             if k.startswith("launches."))
+    return {k: n - since.get(k, 0) for k, n in moved if n != since.get(k, 0)}
 
 
 def totals() -> Dict[str, Tuple[float, int]]:
@@ -127,6 +124,3 @@ def reset() -> None:
     """Clear the span totals and every counter, the launch counts too."""
     _counts.clear()
     _totals.clear()
-    for table in _launch_tables:
-        for k in table:
-            table[k] = 0

@@ -38,6 +38,7 @@ from sph_tpu_torch.engine import step as TSTEP
 from sph_tpu_torch.native import build
 from sph_tpu_torch.neighbors.sweeps import make_pvec
 from sph_tpu_torch.physics import brute_kernels as BK
+from sph_tpu_torch.utils import trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -267,7 +268,7 @@ def test_dam_break_8k_builds_bit_identical():
 def test_wrappers_on_cpu_take_plain_path_without_counting():
     sd, pd, _ = case_numpy("dam_break", warm=0)
     ts, _, contrib, pv = kernel_inputs(sd, pd)
-    BK.reset_launches()
+    trace.reset()
     rho = BK.density_raw(ts.pos, contrib, pv)
     assert torch.equal(rho, BK.density_raw_plain(ts.pos, contrib, pv))
     pres = torch.zeros_like(rho)
@@ -275,7 +276,8 @@ def test_wrappers_on_cpu_take_plain_path_without_counting():
     want = BK.force_plain(ts.pos, ts.vel, rho, pres, contrib, pv)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert BK.LAUNCHES == {"brute_density": 0, "brute_force": 0}
+    assert trace.counter("launches.brute_density") == 0
+    assert trace.counter("launches.brute_force") == 0
 
 
 def test_wrappers_reject_other_devices():
@@ -368,7 +370,7 @@ def cuda():
 def test_kernels_match_plain_on_cuda(cuda, case):
     sd, pd, _ = case_numpy(case)
     ts, tp, contrib, pv = kernel_inputs(sd, pd, device=cuda)
-    BK.reset_launches()
+    trace.reset()
     got = BK.density_raw(ts.pos, contrib, pv)
     want = BK.density_raw_plain(ts.pos, contrib, pv)
     torch.cuda.synchronize()
@@ -387,7 +389,8 @@ def test_kernels_match_plain_on_cuda(cuda, case):
                                atol=VEL_ATOL)
     torch.testing.assert_close(got[2][fl], want[2][fl], rtol=ACC_RTOL,
                                atol=ACC_ATOL)
-    assert BK.LAUNCHES == {"brute_density": 1, "brute_force": 1}
+    assert trace.counter("launches.brute_density") == 1
+    assert trace.counter("launches.brute_force") == 1
 
 
 @pytest.mark.cuda
@@ -413,14 +416,15 @@ def test_engine_on_cuda_matches_cpu(cuda, case):
     outs = {}
     for dev in ("cpu", cuda):
         ts, tp, _, _ = kernel_inputs(sd, pd, device=dev)
-        BK.reset_launches()
+        trace.reset()
         cfg = SimConfig(n=ts.n, grid_dims=dims, neighbor_impl="brute_kernel")
         st, _ = TSTEP.run_substeps(
             ts, tp, TSTEP.SceneBuffers.create(cfg, device=dev), tp.dt, 20,
             cfg)
         outs[str(dev)] = {f: getattr(st, f).cpu()
                           for f in ("pos", "vel", "density")}
-    assert BK.LAUNCHES == {"brute_density": 20, "brute_force": 20}
+    assert trace.counter("launches.brute_density") == 20
+    assert trace.counter("launches.brute_force") == 20
     ref, got = outs["cpu"], outs["cuda"]
     for f, tol in (("pos", POS_TOL), ("vel", VEL_TOL), ("density", RHO_TOL)):
         err = float((got[f] - ref[f]).abs().max())
@@ -528,11 +532,11 @@ def test_density_kernel_on_tiling_inputs_on_cuda(cuda, n):
     block or tile; a second launch is bit-equal to the first."""
     pos, _, _, _, contrib, pv = tiling_inputs(n, device=cuda)
     want = BK.density_raw_plain(pos, contrib, pv)
-    BK.reset_launches()
+    trace.reset()
     got = BK.density_raw(pos, contrib, pv)
     again = BK.density_raw(pos, contrib, pv)
     torch.cuda.synchronize()
-    assert BK.LAUNCHES["brute_density"] == 2
+    assert trace.counter("launches.brute_density") == 2
     torch.testing.assert_close(got, want, rtol=RHO_RTOL, atol=RHO_ATOL)
     assert torch.equal(got, again)
 
@@ -583,11 +587,11 @@ def test_force_kernel_on_tiling_inputs_on_cuda(cuda, n):
     launch is bit-equal to the first."""
     pos, vel, rho, pres, contrib, pv = tiling_inputs(n, device=cuda)
     want = BK.force_plain(pos, vel, rho, pres, contrib, pv)
-    BK.reset_launches()
+    trace.reset()
     got = BK.force(pos, vel, rho, pres, contrib, pv)
     again = BK.force(pos, vel, rho, pres, contrib, pv)
     torch.cuda.synchronize()
-    assert BK.LAUNCHES["brute_force"] == 2
+    assert trace.counter("launches.brute_force") == 2
     # a row with rho = 0 divides by 1e-12: its own outputs are of the order
     # of 1e12 in both versions and the engine discards them (such a row is
     # no fluid row), so the absolute tolerances hold the other rows

@@ -23,6 +23,7 @@ import torch
 from sph_tpu_torch.core import params as TP
 from sph_tpu_torch.core import state as TS
 from sph_tpu_torch.neighbors import cells
+from sph_tpu_torch.utils import trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -383,14 +384,14 @@ def test_cell_table_kernel_bit_equal_on_fixtures(cuda, name):
     """With and without vel, with and without carried columns."""
     skey, order, pos, vel, nc = table_fixture(name, device=cuda)
     carry = carried_fixture(skey.shape[0], device=cuda)
-    cells.reset_launches()
+    trace.reset()
     for v in (vel, None):
         for cols in ((), carry):
             got = cells.cell_table(skey, order, pos, v, nc, cols)
             want = cells.cell_table_plain(skey, order, pos, v, nc, cols)
             torch.cuda.synchronize()
             assert_tables_equal(got, want)
-    assert cells.LAUNCHES == {"cell_table": 4}
+    assert trace.counter("launches.cell_table") == 4
 
 
 @pytest.mark.cuda
@@ -424,10 +425,10 @@ def test_build_on_cuda_matches_cpu(cuda, name):
     outs = {}
     for dev in ("cpu", cuda):
         state, params, dims = build_state(name, device=dev)
-        cells.reset_launches()
+        trace.reset()
         outs[str(dev)] = cells.build(state, params, dims)
     torch.cuda.synchronize()
-    assert cells.LAUNCHES == {"cell_table": 1}
+    assert trace.counter("launches.cell_table") == 1
     want, got = outs["cpu"], outs["cuda"]
     for f in ("key", "cell_start", "cell_end"):
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f

@@ -472,9 +472,9 @@ def test_container_wrappers_reject_other_devices(call):
 @pytest.mark.parametrize("path", ["apply_container", "reassemble",
                                   "run_substeps"])
 def test_container_launches_stay_zero_on_cpu(path):
-    """``launches.container`` is in ``trace.counters()`` and counts no
-    launch on the CPU, where the plain versions run."""
-    TC.reset_launches()
+    """``launches.container`` counts no launch on the CPU, where the plain
+    versions run."""
+    trace.reset()
     state, params, cfg = substep_case(TP.SHAPE_BOX, True)
     if path == "apply_container":
         out = TC.apply_container(state, params)
@@ -487,7 +487,7 @@ def test_container_launches_stay_zero_on_cpu(path):
             state, params, TSTEP.SceneBuffers.create(cfg, device="cpu"),
             params.dt, 2, cfg)
     assert out.pos.device.type == "cpu"
-    assert trace.counters()["launches.container"] == 0
+    assert trace.counter("launches.container") == 0
 
 
 # --- on the card --------------------------------------------------------------
@@ -508,14 +508,14 @@ def test_constraints_on_cuda_match_cpu(cuda, shape, rotation):
     container kernel, one launch), and the terrain and the channel, on CUDA
     tensors against the CPU."""
     d = scattered(shape, ROTATIONS[rotation])
-    TC.reset_launches()
+    trace.reset()
     out = {}
     for dev in (cuda, "cpu"):
         out[str(dev)] = TC.apply_container(
             state_from_numpy(d, device=dev),
             port_params(shape, ROTATIONS[rotation], device=dev))
         torch.cuda.synchronize()
-    assert TC.LAUNCHES == {"container": 1}
+    assert trace.counter("launches.container") == 1
     assert out["cuda"].pos.device.type == "cuda"
     close(out["cuda"].pos.cpu(), out["cpu"].pos, 1e-5, "pos")
     close(out["cuda"].vel.cpu(), out["cpu"].vel, 1e-4, "vel")
@@ -540,7 +540,7 @@ def test_cell_substep_with_container_on_cuda_matches_cpu(cuda, shape,
     on the CPU, for every shape under both rotations, within the sweep
     kernels' tolerances (``tests/test_torch_sweeps.py``)."""
     euler = ROTATIONS[rotation]
-    TC.reset_launches()
+    trace.reset()
     out = {}
     for dev in (cuda, "cpu"):
         state, params, cfg = substep_case(shape, ghosts, device=dev)
@@ -553,7 +553,7 @@ def test_cell_substep_with_container_on_cuda_matches_cpu(cuda, shape,
         order = torch.argsort(st.orig_id)
         out[str(dev)] = {f: getattr(st, f)[order].cpu()
                          for f in ("pos", "vel", "density", "foam")}
-    assert TC.LAUNCHES == {"container": 1}
+    assert trace.counter("launches.container") == 1
     got, want = out["cuda"], out["cpu"]
     close(got["pos"], want["pos"], 1e-5, "pos")
     close(got["vel"], want["vel"], 1e-3, "vel")
@@ -569,7 +569,7 @@ def test_container_pass_checks_inputs_on_cuda(cuda):
     d = scattered(TP.SHAPE_BOX, ROTATIONS["upright"])
     st = state_from_numpy(d, device=cuda)
     tp = port_params(TP.SHAPE_BOX, device=cuda)
-    TC.reset_launches()
+    trace.reset()
     bad = {"rows apart": st.replace(pos=st.pos.t().contiguous().t()),
            "dtype": st.replace(vel=st.vel.double()),
            "shape": st.replace(valid=st.valid[:-1]),
@@ -580,4 +580,4 @@ def test_container_pass_checks_inputs_on_cuda(cuda):
     with pytest.raises(ValueError, match="box_half"):
         TC.apply_container(st, tp.replace(box_half=tp.box_half.double()))
     torch.cuda.synchronize()
-    assert TC.LAUNCHES == {"container": 0}
+    assert trace.counter("launches.container") == 0

@@ -19,7 +19,9 @@ Their inputs are built with the port alone:
 
     python -m pytest tests/test_torch_graph.py -q -m cuda --noconftest
 """
+import ast
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -277,6 +279,27 @@ def test_program_inputs_round_trip_and_key_on_their_shapes():
 # the card: the captured program against the eager loop
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("module", ["engine/graph.py", "utils/trace.py"])
+def test_runner_and_trace_import_no_kernel_module(module):
+    """The frame program's runner and the counters know no module of
+    ``neighbors/``, ``physics/`` or ``app/``: launch counts reach them as
+    ``launches.*`` counters."""
+    path = os.path.join(os.path.dirname(os.path.dirname(graph.__file__)),
+                        module)
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [f"{n.module}.{a.name}" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) for a in n.names]
+    assert all(n.level == 0 for n in ast.walk(tree)
+               if isinstance(n, ast.ImportFrom))
+    ours = {n for n in names if n.startswith("sph_tpu_torch")}
+    assert not any(n.startswith(f"sph_tpu_torch.{pkg}")
+                   for n in ours for pkg in ("neighbors", "physics", "app"))
+    assert ours <= {"sph_tpu_torch.utils.trace"}
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -322,7 +345,6 @@ def test_graph_per_substep_count_on_cuda(cuda):
 
 @pytest.mark.cuda
 def test_launch_counts_after_replays_on_cuda(cuda):
-    from sph_tpu_torch.physics import brute_kernels, constraints
     # the container pass: inside the cell engine's reassembly, in the scene
     # stages of the all-pairs kernels; one launch a substep either way
     for case, per_sub in (("ghosts", {"cell_table": 1, "density": 1,
@@ -331,14 +353,11 @@ def test_launch_counts_after_replays_on_cuda(cuda):
                                             "brute_force": 1,
                                             "container": 1})):
         state, params, cfg, buf = port_case(case, cuda)
-        for mod in (cells, sweeps, brute_kernels, constraints):
-            mod.reset_launches()
+        trace.reset()
         frames(TSTEP.run_substeps, state, params, cfg, buf, n_frames=3)
-        counts = {**cells.LAUNCHES, **sweeps.LAUNCHES,
-                  **brute_kernels.LAUNCHES, **constraints.LAUNCHES}
+        counts = trace.launches()
         assert trace.counters()["launches.container"] == 3 * N_SUB
-        want = dict.fromkeys(counts, 0)
-        want.update({k: 3 * N_SUB * v for k, v in per_sub.items()})
+        want = {k: 3 * N_SUB * v for k, v in per_sub.items()}
         if case == "ghosts":        # the ghosts' table, once a frame
             want["cell_table"] += 3
         assert counts == want, case

@@ -31,6 +31,7 @@ import torch
 
 from sph_tpu_torch.app import microbench as MB
 from sph_tpu_torch.app import proto_expand as PE
+from sph_tpu_torch.utils import trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -236,12 +237,12 @@ def test_synth_follows_the_script(proto):
 
 
 def test_wrappers_on_cpu_take_plain_path_without_counting():
-    MB.reset_launches()
-    PE.reset_launches()
+    trace.reset()
     MB.smoke(torch.ones(8, 128))
     starts, rows, _ = PE.synth(2, 64, 16)
     PE.expand(torch.as_tensor(starts), torch.as_tensor(rows), 64)
-    assert MB.LAUNCHES == {"smoke": 0} and PE.LAUNCHES == {"expand": 0}
+    assert trace.counter("launches.smoke") == 0
+    assert trace.counter("launches.expand") == 0
     with pytest.raises(ValueError, match="CUDA or CPU"):
         MB.smoke(torch.ones(8, 128, device="meta"))
     with pytest.raises(ValueError, match="CUDA or CPU"):
@@ -275,11 +276,11 @@ def cuda():
 def test_smoke_kernel_matches_plain_on_cuda(cuda, shape):
     x = torch.as_tensor(np.random.default_rng(2).standard_normal(shape)
                         .astype(np.float32), device=cuda)
-    MB.reset_launches()
+    trace.reset()
     got = MB.smoke(x)
     torch.cuda.synchronize()
     assert torch.equal(got, MB.smoke_plain(x))
-    assert MB.LAUNCHES == {"smoke": 1}
+    assert trace.counter("launches.smoke") == 1
 
 
 @pytest.mark.cuda
@@ -289,13 +290,13 @@ def test_expand_kernel_matches_plain_on_cuda(cuda, sizes):
     starts, rows, targets = PE.synth(nrow, s, maxr)
     st, rw = torch.as_tensor(starts, device=cuda), torch.as_tensor(
         rows, device=cuda)
-    PE.reset_launches()
+    trace.reset()
     got = PE.expand(st, rw, s)
     torch.cuda.synchronize()
     assert torch.equal(got, PE.expand_plain(st, rw, s))
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   PE.oracle(starts, rows, targets, s))
-    assert PE.LAUNCHES == {"expand": 1}
+    assert trace.counter("launches.expand") == 1
 
 
 @pytest.mark.cuda
@@ -305,13 +306,13 @@ def test_expand_kernel_matches_plain_at_edges_on_cuda(cuda, case):
     starts, rows = pack(targets, seed=17)
     st, rw = torch.as_tensor(starts, device=cuda), torch.as_tensor(
         rows, device=cuda)
-    PE.reset_launches()
+    trace.reset()
     got = PE.expand(st, rw, s)
     torch.cuda.synchronize()
     assert torch.equal(got, PE.expand_plain(st, rw, s))
     np.testing.assert_array_equal(got.cpu().numpy(),
                                   PE.oracle(starts, rows, targets, s))
-    assert PE.LAUNCHES == {"expand": 1}
+    assert trace.counter("launches.expand") == 1
 
 
 @pytest.mark.cuda

@@ -328,19 +328,18 @@ def test_mode_on_cuda_matches_cpu(cuda, mode):
     card against its plain versions on the CPU, realigned by orig_id,
     with equal counts of respawned rows."""
     from sph_tpu_torch.engine import step as TSTEP
-    from sph_tpu_torch.neighbors import cells, sweeps
+    from sph_tpu_torch.utils import trace
 
     outs = {}
     for dev in ("cpu", cuda):
         ts, tp, cfg, tb = port_case(mode, dev)
-        sweeps.reset_launches()
-        cells.reset_launches()
+        trace.reset()
         st, buf = TSTEP.run_substeps(ts, tp, tb, tp.dt, N_SUB, cfg)
         outs[str(dev)] = ({f: getattr(st, f).cpu().numpy() for f in (
             "pos", "vel", "density", "valid", "ghost", "orig_id")},
             int(buf.recycled))
-    assert sweeps.LAUNCHES["density"] == N_SUB
-    assert cells.LAUNCHES["cell_table"] == N_SUB
+    assert trace.counter("launches.density") == N_SUB
+    assert trace.counter("launches.cell_table") == N_SUB
     (ref, n_ref), (got, n_got) = outs["cpu"], outs["cuda"]
     err = realigned_errors(ref, got)
     assert err["pos"] < POS_TOL and err["vel"] < VEL_TOL, err

@@ -51,11 +51,11 @@ from sph_tpu.viz import camera as JCAM
 from sph_tpu_torch.app.keys import KeyController, param_entries
 from sph_tpu_torch.core.params import compute_grid_dims
 from sph_tpu_torch.io import presets as TIO
-from sph_tpu_torch.neighbors import cells, sweeps
 from sph_tpu_torch.scene import quicksets as TQ
 from sph_tpu_torch.scene import scene as TSC
 from sph_tpu_torch.scene import sequencer as TSEQ
 from sph_tpu_torch.scene import settings as TSET
+from sph_tpu_torch.utils import trace
 from sph_tpu_torch.viz.splat import luma, read_png
 
 POS_TOL, VEL_TOL, RHO_TOL = 1e-4, 1e-3, 1.0
@@ -144,14 +144,14 @@ def four_frames():
     port, jcell, jbrute = port_scene(), jax_scene("cell"), jax_scene("brute")
     out = {"port": [], "spread": [], "n_sub": [], "scene": port,
            "jax_scene": jcell}
-    cells.reset_launches()
-    sweeps.reset_launches()
+    trace.reset()
     for bands in BANDS:
         out["n_sub"].append([sc.update(1 / 60, bands=bands)
                              for sc in (port, jcell, jbrute)])
         out["port"].append(errors(port.state, jcell.state))
         out["spread"].append(errors(jcell.state, jbrute.state))
-    out["launches"] = dict(cells.LAUNCHES, **sweeps.LAUNCHES)
+    out["launches"] = {k: trace.counter(f"launches.{k}") for k in (
+        "cell_table", "density", "force_xsph", "force_xsph_emit")}
     return out
 
 

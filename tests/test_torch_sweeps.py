@@ -36,6 +36,7 @@ from sph_tpu_torch.core import state as TS
 from sph_tpu_torch.core.params import SimConfig
 from sph_tpu_torch.neighbors import cells, sweeps
 from sph_tpu_torch.physics import constraints
+from sph_tpu_torch.utils import trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -229,17 +230,23 @@ def test_crowded_case_exceeds_capacity():
     assert counts.max() > 8 and (counts > 8).sum() >= 40
 
 
+def sweep_launches():
+    """The launch counters of the three sweep kernels."""
+    return {k: trace.counter(f"launches.{k}")
+            for k in ("density", "force_xsph", "force_xsph_emit")}
+
+
 def test_wrappers_on_cpu_take_plain_path_without_counting():
     state, params, dims = port_inputs("dam_break", warm=0)
     (key, pos, vel, cs, ce), _, pv, _ = sweep_inputs(state, params, dims)
-    sweeps.reset_launches()
+    trace.reset()
     rho, _ = sweeps.density(key, pos, cs, ce, pv)
     ref = sweeps.density_plain(key, pos, cs, ce, pv)[0]
     assert torch.equal(rho, ref)
     sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv)
     sweeps.force_xsph_emit(key, pos, vel, rho, cs, ce, pv)
-    assert sweeps.LAUNCHES == {"density": 0, "force_xsph": 0,
-                               "force_xsph_emit": 0}
+    assert sweep_launches() == {"density": 0, "force_xsph": 0,
+                                "force_xsph_emit": 0}
 
 
 def test_wrappers_reject_other_devices():
@@ -373,7 +380,7 @@ def cuda():
 def test_kernels_match_plain_on_cuda(cuda, case):
     state, params, dims = port_inputs(case, device=cuda)
     (key, pos, vel, cs, ce), _, pv, g = sweep_inputs(state, params, dims)
-    sweeps.reset_launches()
+    trace.reset()
     rho_k, pres_k = sweeps.density(key, pos, cs, ce, pv, g)
     rho_p, pres_p = sweeps.density_plain(key, pos, cs, ce, pv, g)
     torch.testing.assert_close(rho_k, rho_p, rtol=RHO_RTOL, atol=RHO_ATOL)
@@ -385,8 +392,8 @@ def test_kernels_match_plain_on_cuda(cuda, case):
     torch.testing.assert_close(got[0], want[0], rtol=0, atol=POS_ATOL)
     torch.testing.assert_close(got[1], want[1], rtol=0, atol=VEL_ATOL)
     torch.testing.assert_close(got[2], want[2], rtol=ACC_RTOL, atol=ACC_ATOL)
-    assert sweeps.LAUNCHES == {"density": 1, "force_xsph": 1,
-                               "force_xsph_emit": 0}
+    assert sweep_launches() == {"density": 1, "force_xsph": 1,
+                                "force_xsph_emit": 0}
 
 
 @pytest.mark.cuda
@@ -398,7 +405,7 @@ def test_density_kernel_packs_source_records_on_cuda(cuda, case):
     packed by the wrapper."""
     state, params, dims = port_inputs(case, device=cuda)
     (key, pos, vel, cs, ce), _, pv, g = sweep_inputs(state, params, dims)
-    sweeps.reset_launches()
+    trace.reset()
     rho, pres, src = sweeps.density_sources(key, pos, vel, cs, ce, pv, g)
     ref = sweeps.density(key, pos, cs, ce, pv, g)
     torch.cuda.synchronize()
@@ -409,8 +416,8 @@ def test_density_kernel_packs_source_records_on_cuda(cuda, case):
         assert torch.equal(a, b)
     assert torch.equal(sweeps.force_xsph_emit(*args, src),
                        sweeps.force_xsph_emit(*args))
-    assert sweeps.LAUNCHES == {"density": 2, "force_xsph": 2,
-                               "force_xsph_emit": 2}
+    assert sweep_launches() == {"density": 2, "force_xsph": 2,
+                                "force_xsph_emit": 2}
     with pytest.raises(ValueError, match="shape"):
         sweeps.force_xsph(*args, src[:, :-1].contiguous())
 
@@ -439,7 +446,7 @@ def test_cell_engine_on_cuda_matches_cpu(cuda, case):
     outs = {}
     for dev in ("cpu", cuda):
         state, params, dims = port_inputs(case, device=dev, warm=0)
-        sweeps.reset_launches()
+        trace.reset()
         cfg = SimConfig(n=state.n, grid_dims=dims)
         st, _ = run_substeps(state, params,
                              SceneBuffers.create(cfg, device=dev), params.dt,
@@ -447,8 +454,8 @@ def test_cell_engine_on_cuda_matches_cpu(cuda, case):
         order = torch.argsort(st.orig_id)
         outs[str(dev)] = {f: getattr(st, f)[order].cpu()
                           for f in ("pos", "vel", "density", "valid")}
-    assert sweeps.LAUNCHES == {"density": 20, "force_xsph": 20,
-                               "force_xsph_emit": 0}
+    assert sweep_launches() == {"density": 20, "force_xsph": 20,
+                                "force_xsph_emit": 0}
     ref, got = outs["cpu"], outs["cuda"]
     v = ref["valid"] > 0
     for f, tol in (("pos", 1e-4), ("vel", 1e-3), ("density", 1.0)):
@@ -462,7 +469,7 @@ def test_emit_kernel_matches_plain_on_cuda(cuda, case):
     state, params, dims = port_inputs(case, device=cuda)
     (key, pos, vel, cs, ce), _, pv, g = sweep_inputs(state, params, dims)
     rho, _ = sweeps.density_plain(key, pos, cs, ce, pv, g)
-    sweeps.reset_launches()
+    trace.reset()
     got = sweeps.force_xsph_emit(key, pos, vel, rho, cs, ce, pv, g)
     want = sweeps.force_xsph_emit_plain(key, pos, vel, rho, cs, ce, pv, g)
     torch.cuda.synchronize()
@@ -476,18 +483,18 @@ def test_emit_kernel_matches_plain_on_cuda(cuda, case):
     # the same sweep as force_xsph_kernel, bit for bit
     npos, nvel, acc = sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv, g)
     assert torch.equal(got[:, :9], torch.cat([npos, nvel, acc], 1))
-    assert sweeps.LAUNCHES == {"density": 0, "force_xsph": 1,
-                               "force_xsph_emit": 1}
+    assert sweep_launches() == {"density": 0, "force_xsph": 1,
+                                "force_xsph_emit": 1}
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(CASES))
 def test_emit_rows_bit_identical_to_gather_on_cuda(cuda, case):
     state, params, dims = port_inputs(case, device=cuda)
-    sweeps.reset_launches()
+    trace.reset()
     gather, emit = run_both_transports(state, params, dims, 5)
-    assert sweeps.LAUNCHES == {"density": 10, "force_xsph": 5,
-                               "force_xsph_emit": 5}
+    assert sweep_launches() == {"density": 10, "force_xsph": 5,
+                                "force_xsph_emit": 5}
     for f in STATE_FIELDS:
         assert torch.equal(getattr(emit, f), getattr(gather, f)), f
 
@@ -546,7 +553,7 @@ def test_container_pass_bit_identical_to_torch_ops_on_cuda(cuda, ghosts,
     the plain torch ops on the same CUDA tensors, bit for bit (a box at
     zero Euler angles, whose rotation is exactly the identity)."""
     state, sweep, params = reassembly_inputs(cuda, ghosts, emit)
-    constraints.reset_launches()
+    trace.reset()
     ra = sweeps.reassemble(state, *sweep, params, ghosts=ghosts)
     torch.cuda.synchronize()
     rp = sweeps.reassemble_plain(state, *sweep, params, ghosts=ghosts)
@@ -559,7 +566,7 @@ def test_container_pass_bit_identical_to_torch_ops_on_cuda(cuda, ghosts,
                              contain=True)
     torch.cuda.synchronize()
     assert_same_state(both, cp)
-    assert constraints.LAUNCHES == {"container": 3}
+    assert trace.counter("launches.container") == 3
     fluid = state.fluid_mask()
     # the cases reach what they claim: foam on fluid rows, rows moved
     assert int((rp.foam > state.foam * 0.995)[fluid].sum()) > 1000
@@ -936,7 +943,7 @@ def test_density_kernel_on_blocking_fixtures_on_cuda(cuda, name):
             name, device=cuda, crowd=CROWD_CARD)
     if name == "single":
         pv = light(pv)
-    sweeps.reset_launches()
+    trace.reset()
     rho_p, pres_p = sweeps.density_plain(key, pos, cs, ce, pv, g)
     rho, pres = sweeps.density(key, pos, cs, ce, pv, g)
     rho_s, pres_s, src = sweeps.density_sources(key, pos, vel, cs, ce, pv, g)
@@ -951,7 +958,7 @@ def test_density_kernel_on_blocking_fixtures_on_cuda(cuda, name):
         assert torch.equal(a, b)
     if name == "single":
         assert float(rho[key < pv.num_cells][0]) == pv.rho_floor
-    assert sweeps.LAUNCHES["density"] == 3
+    assert trace.counter("launches.density") == 3
 
 
 @pytest.mark.cuda

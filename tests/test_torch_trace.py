@@ -176,21 +176,24 @@ def test_counters_count_the_frame_paths_waits_and_builds(case):
     assert got.get("ghost_builds", 0) == 2 * builds
     assert trace.counter("test.counter") == 3
     assert trace.counter("never.counted") == 0
-    assert {"launches.cell_table", "launches.density", "launches.force_xsph",
-            "launches.force_xsph_emit", "launches.container",
-            "launches.brute_density", "launches.brute_force"} <= set(got)
+    # no launch counter moved: the CPU path launches no kernel
+    assert trace.launches() == {}
 
 
 def test_reset_clears_counters_totals_and_launch_counts():
-    from sph_tpu_torch.neighbors import sweeps
+    from sph_tpu_torch.native import build
     trace.enable(True)
     with trace.span("sph.test"):
         trace.count("host_waits")
-    sweeps.LAUNCHES["density"] += 2
-    assert trace.counters()["launches.density"] >= 2
+    build.launched("density", 0)
+    build.launched("density", 0)
+    assert trace.counters()["launches.density"] == 2
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        build.launched("density", 700)
+    assert trace.launches() == {"density": 2}
     trace.reset()
     assert trace.totals() == {} and trace.counter("host_waits") == 0
-    assert sweeps.LAUNCHES["density"] == 0
+    assert trace.counter("launches.density") == 0
     assert not any(trace.counters().values())
 
 
