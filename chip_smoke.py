@@ -26,18 +26,20 @@ prints no result line):
              state with 2,400 rows in one cell, against the plain versions;
 3a. dense — the force kernel on later states of the benchmark's three
              configurations (``DENSE_FRAMES`` frames of each main path:
-             ``rotated_512k`` after 60, its piled-up corner): ``nvcc
-             -Xptxas -v``'s registers and spills of both force kernels;
-             the kernel's tile-path counter equal to
-             ``sweeps.tile_warp_count``; its outputs with the counter, a
+             ``rotated_512k`` after 20, 60 and 100, its piled-up corner):
+             ``nvcc -Xptxas -v``'s registers and spills of both force
+             kernels; the kernel's tile-path counter equal to
+             ``sweeps.tile_warp_count``, and the other warps by
+             ``sweeps.queue_warp_reasons``; its outputs with the counter, a
              second launch and the emit variant bit-equal; timed with CUDA
              events beside its bound.  ``python3 chip_smoke.py dense
              --against <root>`` runs this phase alone, with the force kernel
              of another checkout at ``<root>`` (built by its own
              ``native/build.py``) on the same inputs: its outputs bit-equal
-             or the largest differences within the tolerances, and both
-             kernels timed in turns; ``--states <dir>`` saves the states
-             there, or reads them where saved;
+             or the largest differences within the tolerances, its tile
+             share where it counts one, and both kernels timed in turns;
+             ``--states <dir>`` saves the states there, or reads them where
+             saved;
 3b. container — on the full ``default_131k`` and ``ghost_1m`` states
              (sorted rows and the sweep kernels' outputs after one plain
              substep), the container pass (``csrc/container.cu``) in each
@@ -827,19 +829,21 @@ def phase_crowded(dev):
 
 
 # Phase "dense": the force kernel on states of the three benchmark
-# configurations after this many frames of their main path (the prologue
-# and 16 substeps a frame): rotated_512k's piled-up corner (40 to 170 rows a
-# cell from frame 20 on), and the others where neighbor_counts reads them.
-DENSE_FRAMES = {"default_131k": 5, "ghost_1m": 5, "rotated_512k": 60}
+# configurations after these frames of their main path (the prologue and 16
+# substeps a frame): rotated_512k's piled-up corner (40 to 170 rows a cell
+# from frame 20 on), and the others where neighbor_counts reads them.
+DENSE_FRAMES = {"default_131k": (5,), "ghost_1m": (5,),
+                "rotated_512k": (20, 60, 100)}
 DENSE_REPS = 20
 DENSE_TURNS = 3
 
 
 def dense_inputs(dev, config, frames, states_dir=None):
-    """The force kernel's inputs after ``frames`` frames of ``config``: the
-    sorted rows, the density kernel's rho and source records, the sweep
-    params and the ghost structure.  With ``states_dir`` they are read from
-    ``<config>_<frames>.pt`` there when it exists, else saved there."""
+    """The force kernel's inputs after each of ``frames`` (ascending) frames
+    of one run of ``config``: a list of (the sorted rows, the density
+    kernel's rho and source records; the sweep params; the ghost
+    structure).  With ``states_dir`` they are read from
+    ``<config>_<frames>.pt`` there when all exist, else saved there."""
     import os
 
     import torch
@@ -848,32 +852,40 @@ def dense_inputs(dev, config, frames, states_dir=None):
     from sph_tpu_torch.neighbors import cells, sweeps
     from sph_tpu_torch.neighbors.cells import GhostRows
 
-    path = (None if states_dir is None
-            else os.path.join(states_dir, f"{config}_{frames}.pt"))
-    if path is not None and os.path.exists(path):
-        d = torch.load(path, map_location=dev)
-        ghosts = None if d["ghosts"] is None else GhostRows(*d["ghosts"])
-        pv = sweeps.SweepParams(d["consts"], *d["dims"])
-        return d["args"], pv, ghosts
+    paths = [None if states_dir is None
+             else os.path.join(states_dir, f"{config}_{f}.pt") for f in frames]
+    if states_dir is not None and all(map(os.path.exists, paths)):
+        out = []
+        for path in paths:
+            d = torch.load(path, map_location=dev)
+            ghosts = None if d["ghosts"] is None else GhostRows(*d["ghosts"])
+            out.append((d["args"], sweeps.SweepParams(d["consts"], *d["dims"]),
+                        ghosts))
+        return out
     state, params, cfg = configs.build(config, device=dev)
     prologue = configs.frame_prologue(config, params, FRAME_SUBSTEPS)
     buffers = SceneBuffers.create(cfg, device=dev)
-    for _ in range(frames):
-        state, buffers = run_substeps(prologue(state), params, buffers,
-                                      params.dt, FRAME_SUBSTEPS, cfg)
-    pv, ghosts = sweeps.prepare(state, params, params.dt, cfg)
-    r = cells.build(state, params, cfg.grid_dims)
-    rho, _, src = sweeps.density_sources(r.key, r.state.pos, r.state.vel,
-                                         r.cell_start, r.cell_end, pv, ghosts)
-    args = (r.key, r.state.pos, r.state.vel, rho, r.cell_start, r.cell_end,
-            src)
-    if path is not None:
-        os.makedirs(states_dir, exist_ok=True)
-        torch.save({"args": args, "consts": pv.consts,
-                    "dims": (pv.nx, pv.ny, pv.nz),
-                    "ghosts": None if ghosts is None else tuple(ghosts)},
-                   path)
-    return args, pv, ghosts
+    out, done = [], 0
+    for at, path in zip(frames, paths):
+        for _ in range(at - done):
+            state, buffers = run_substeps(prologue(state), params, buffers,
+                                          params.dt, FRAME_SUBSTEPS, cfg)
+        done = at
+        pv, ghosts = sweeps.prepare(state, params, params.dt, cfg)
+        r = cells.build(state, params, cfg.grid_dims)
+        rho, _, src = sweeps.density_sources(r.key, r.state.pos, r.state.vel,
+                                             r.cell_start, r.cell_end, pv,
+                                             ghosts)
+        args = (r.key, r.state.pos, r.state.vel, rho, r.cell_start,
+                r.cell_end, src)
+        if path is not None:
+            os.makedirs(states_dir, exist_ok=True)
+            torch.save({"args": args, "consts": pv.consts,
+                        "dims": (pv.nx, pv.ny, pv.nz),
+                        "ghosts": None if ghosts is None else tuple(ghosts)},
+                       path)
+        out.append((args, pv, ghosts))
+    return out
 
 
 def other_force_library(root):
@@ -965,95 +977,106 @@ def phase_dense(dev, against=None, states_dir=None):
     With ``against`` (another checkout's root), that checkout's force kernel
     on the same inputs: outputs bit-equal or the largest differences within
     the tolerances, and both timed in turns, this tree's first."""
-    import statistics
-
-    import torch
-    from sph_tpu_torch.app.microbench import time_ms
     from sph_tpu_torch.native import build
-    from sph_tpu_torch.neighbors import sweeps
 
     regs = force_registers()
     lib = build.library()
     other = None if against is None else other_force_library(against)
     out = {"registers": regs}
-    for config, frames in DENSE_FRAMES.items():
-        args, pv, ghosts = dense_inputs(dev, config, frames, states_dir)
-        key, pos, vel, rho, cs, ce, src = args
-        counter = torch.zeros(1, dtype=torch.int32, device=dev)
-        got = launch_force(lib, args, pv, ghosts, counter=counter)
-        plain = launch_force(lib, args, pv, ghosts)
-        per = sweeps.force_xsph_emit(key, pos, vel, rho, cs, ce, pv, ghosts,
-                                     src)
-        torch.cuda.synchronize()
-        tiles = sweeps.tile_warp_count(key, pv.num_cells, pv.nx)
-        fluid_rows = int((key < pv.num_cells).sum())
-        warps = -(-fluid_rows // 32)
-        if int(counter) != tiles:
-            raise AssertionError(f"{config} dense: the kernel counted "
-                                 f"{int(counter)} tile warps, the rule "
-                                 f"{tiles}")
-        for a, b in zip(got, plain):
-            if not torch.equal(a, b):
-                raise AssertionError(f"{config} dense: outputs with the "
-                                     f"counter differ from those without")
-        if not torch.equal(per[:, :9], torch.cat(got, 1)):
-            raise AssertionError(f"{config} dense: force_xsph_emit is not "
-                                 f"bit-equal to force_xsph_kernel")
-        check_repeat(f"{config} dense force_xsph", got,
-                     lambda: launch_force(lib, args, pv, ghosts))
-        cand, _, near_f, near_x = cell_pairs(key, pos, got[0], cs, ce, pv,
-                                             ghosts)
-        n, nc8 = int(key.shape[0]), 8 * pv.num_cells
-        gbytes = 0 if ghosts is None else 12 * ghosts.count + nc8
-        nbytes = 32 * n + nc8 + gbytes + 36 * n
-        ops = (2 * OPS_TEST * cand + OPS_FORCE_NEAR * near_f
-               + OPS_XSPH_NEAR * near_x)
-        rec = {"frames": frames, "rows": fluid_rows, "tile_warps": tiles,
-               "tile_share": tiles / max(warps, 1), "candidates": cand,
-               "pairs_force": near_f, "pairs_xsph": near_x}
-        log(f"{config} after {frames} frames: {fluid_rows} fluid rows, "
-            f"{cand} candidates, {near_f} pairs within h (force), {near_x} "
-            f"(XSPH); tile path {tiles} of {warps} warps "
-            f"({rec['tile_share']!r}); counter, relaunch and emit checks "
-            f"passed")
-        mine = lambda: launch_force(lib, args, pv, ghosts)
-        if other is None:
-            ms = time_ms(mine, DENSE_REPS)
-            rec.update(report(config, "force_xsph dense", ms, None, nbytes,
-                              ops, n))
-            out[config] = rec
-            continue
-        olib, counted = other
-        theirs = lambda: launch_force(olib, args, pv, ghosts, counted)
-        ref = theirs()
-        torch.cuda.synchronize()
-        if all(torch.equal(a, b) for a, b in zip(got, ref)):
-            rec["against"] = "bit-equal"
-        else:
-            rec["against"] = {
-                "npos": check_close(f"{config} npos against", got[0], ref[0],
-                                    0.0, POS_ATOL),
-                "nvel": check_close(f"{config} nvel against", got[1], ref[1],
-                                    0.0, VEL_ATOL),
-                "acc": check_close(f"{config} acc against", got[2], ref[2],
-                                   ACC_RTOL, ACC_ATOL),
-                "rows_apart": int((torch.cat(got, 1) != torch.cat(ref, 1))
-                                  .any(1).sum())}
-        turns = {"this": [], "against": []}
-        for _ in range(DENSE_TURNS):
-            for side in ("this", "against", "against", "this"):
-                turns[side].append(time_ms(mine if side == "this" else theirs,
-                                           DENSE_REPS))
-        ms = statistics.median(turns["this"])
-        ms_other = statistics.median(turns["against"])
-        rec.update(report(config, "force_xsph dense", ms, None, nbytes, ops,
-                          n))
-        rec.update(against_ms=ms_other, turns=turns, speedup=ms_other / ms)
-        log(f"{config} dense force_xsph: this tree {ms!r} ms, {against} "
-            f"{ms_other!r} ms (medians of {2 * DENSE_TURNS}, in turns), "
-            f"{ms_other / ms!r}x; outputs against it: {rec['against']}")
-        out[config] = rec
+    for config, at in DENSE_FRAMES.items():
+        for frames, inputs in zip(at, dense_inputs(dev, config, at,
+                                                   states_dir)):
+            out[f"{config}_{frames}"] = dense_state(
+                lib, other, against, config, frames, *inputs)
     return out
+
+
+def dense_state(lib, other, against, config, frames, args, pv, ghosts):
+    """Phase dense on one state of ``config`` after ``frames`` frames
+    (``phase_dense``): its record."""
+    import statistics
+
+    import torch
+    from sph_tpu_torch.app.microbench import time_ms
+    from sph_tpu_torch.neighbors import sweeps
+
+    key, pos, vel, rho, cs, ce, src = args
+    name = f"{config} after {frames} frames"
+    counter = torch.zeros(1, dtype=torch.int32, device=key.device)
+    got = launch_force(lib, args, pv, ghosts, counter=counter)
+    plain = launch_force(lib, args, pv, ghosts)
+    per = sweeps.force_xsph_emit(key, pos, vel, rho, cs, ce, pv, ghosts, src)
+    torch.cuda.synchronize()
+    tiles = sweeps.tile_warp_count(key, pv.num_cells, pv.nx)
+    reasons = sweeps.queue_warp_reasons(key, pv.num_cells, pv.nx)
+    fluid_rows = int((key < pv.num_cells).sum())
+    warps = -(-fluid_rows // 32)
+    if int(counter) != tiles:
+        raise AssertionError(f"{name} dense: the kernel counted "
+                             f"{int(counter)} tile warps, the rule {tiles}")
+    for a, b in zip(got, plain):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name} dense: outputs with the counter "
+                                 f"differ from those without")
+    if not torch.equal(per[:, :9], torch.cat(got, 1)):
+        raise AssertionError(f"{name} dense: force_xsph_emit is not "
+                             f"bit-equal to force_xsph_kernel")
+    check_repeat(f"{name} dense force_xsph", got,
+                 lambda: launch_force(lib, args, pv, ghosts))
+    cand, _, near_f, near_x = cell_pairs(key, pos, got[0], cs, ce, pv, ghosts)
+    n, nc8 = int(key.shape[0]), 8 * pv.num_cells
+    gbytes = 0 if ghosts is None else 12 * ghosts.count + nc8
+    nbytes = 32 * n + nc8 + gbytes + 36 * n
+    ops = (2 * OPS_TEST * cand + OPS_FORCE_NEAR * near_f
+           + OPS_XSPH_NEAR * near_x)
+    rec = {"frames": frames, "rows": fluid_rows, "tile_warps": tiles,
+           "tile_share": tiles / max(warps, 1), "queue_reasons": reasons,
+           "candidates": cand, "pairs_force": near_f, "pairs_xsph": near_x}
+    log(f"{name}: {fluid_rows} fluid rows, {cand} candidates, {near_f} pairs "
+        f"within h (force), {near_x} (XSPH); tile path {tiles} of {warps} "
+        f"warps ({rec['tile_share']!r}), the others queue by {reasons}; "
+        f"counter, relaunch and emit checks passed")
+    mine = lambda: launch_force(lib, args, pv, ghosts)
+    if other is None:
+        ms = time_ms(mine, DENSE_REPS)
+        rec.update(report(name, "force_xsph dense", ms, None, nbytes, ops, n))
+        return rec
+    olib, counted = other
+    theirs = lambda: launch_force(olib, args, pv, ghosts, counted)
+    ref = theirs()
+    if counted:
+        counter.zero_()
+        launch_force(olib, args, pv, ghosts, counted, counter)
+        rec["against_tile_warps"] = int(counter)
+        rec["against_tile_share"] = int(counter) / max(warps, 1)
+    torch.cuda.synchronize()
+    if all(torch.equal(a, b) for a, b in zip(got, ref)):
+        rec["against"] = "bit-equal"
+    else:
+        rec["against"] = {
+            "npos": check_close(f"{name} npos against", got[0], ref[0], 0.0,
+                                POS_ATOL),
+            "nvel": check_close(f"{name} nvel against", got[1], ref[1], 0.0,
+                                VEL_ATOL),
+            "acc": check_close(f"{name} acc against", got[2], ref[2],
+                               ACC_RTOL, ACC_ATOL),
+            "rows_apart": int((torch.cat(got, 1) != torch.cat(ref, 1))
+                              .any(1).sum())}
+    turns = {"this": [], "against": []}
+    for _ in range(DENSE_TURNS):
+        for side in ("this", "against", "against", "this"):
+            turns[side].append(time_ms(mine if side == "this" else theirs,
+                                       DENSE_REPS))
+    ms = statistics.median(turns["this"])
+    ms_other = statistics.median(turns["against"])
+    rec.update(report(name, "force_xsph dense", ms, None, nbytes, ops, n))
+    rec.update(against_ms=ms_other, turns=turns, speedup=ms_other / ms)
+    log(f"{name} dense force_xsph: this tree {ms!r} ms, {against} "
+        f"{ms_other!r} ms (medians of {2 * DENSE_TURNS}, in turns), "
+        f"{ms_other / ms!r}x; tile share {rec['tile_share']!r}, "
+        f"{against}'s {rec.get('against_tile_share')!r}; outputs against "
+        f"it: {rec['against']}")
+    return rec
 
 
 def phase_kernels_brute(dev, config):

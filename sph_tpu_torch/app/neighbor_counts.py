@@ -14,11 +14,15 @@ it, the row itself included.  It prints the means, the quantiles, the share
 of rows with more than 32, 48 and 64 in reach, the share of warps (32
 consecutive sorted rows) that hold such a row: a warp whose fullest row has
 more than ``sweeps.FORCE_QUEUE`` empties its queues on the way and walks
-twice (``csrc/sweeps.cu``), and the share of the warps with a fluid row
+twice (``csrc/sweeps.cu``), the share of the warps with a fluid row
 that take the force kernel's tile path instead (``sweeps.tile_warp_count``:
-32 rows of one cell, or of two cells side by side in x), which no queue
-limits.  The last line of each count is the same as one JSON object.  It
-needs a CUDA card.
+32 fluid rows in one x-run of cells or in two, those of each run at most
+``sweeps.FORCE_TILE_SPAN`` cells apart or some row's own three cells
+holding ``sweeps.FORCE_TILE_CROWD`` rows), which no queue limits, and the
+other warps by why the rule turns them away
+(``sweeps.queue_warp_reasons``: a non-fluid row or the partial last warp,
+three x-runs or more, a sparse run wider than the span).  The last line of each
+count is the same as one JSON object.  It needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -87,6 +91,7 @@ def count_state(name, state, params, cfg, frames: int):
     warps = near[:near.shape[0] // 32 * 32].reshape(-1, 32).max(1).values
     fluid_warps = -(-near.shape[0] // 32)
     tile = sweeps.tile_warp_count(r.key, pv.num_cells, pv.nx)
+    reasons = sweeps.queue_warp_reasons(r.key, pv.num_cells, pv.nx)
     res = {
         "config": name, "card": torch.cuda.get_device_name(0),
         "substeps": frames * SUBSTEPS, "fluid_rows": int(near.shape[0]),
@@ -97,7 +102,7 @@ def count_state(name, state, params, cfg, frames: int):
         "rows_over": {n: float((near > n).float().mean()) for n in LIMITS},
         "warps_over": {n: float((warps > n).float().mean()) for n in LIMITS},
         "tile_warps": tile, "fluid_warps": fluid_warps,
-        "tile_share": tile / max(fluid_warps, 1),
+        "tile_share": tile / max(fluid_warps, 1), "queue_reasons": reasons,
     }
     print(f"{name} after {res['substeps']} substeps on {res['card']}: "
           f"{res['fluid_rows']} fluid rows; candidates mean "
@@ -108,7 +113,7 @@ def count_state(name, state, params, cfg, frames: int):
           f"rows over {LIMITS}: {list(res['rows_over'].values())}; warps "
           f"with such a row: {list(res['warps_over'].values())}; tile path: "
           f"{tile} of {fluid_warps} warps with a fluid row, "
-          f"{res['tile_share']!r}")
+          f"{res['tile_share']!r}; the others queue by {reasons}")
     print(json.dumps(res))
     return res
 

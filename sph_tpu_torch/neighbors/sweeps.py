@@ -53,6 +53,13 @@ _PLAIN_CHUNK = 8192
 # the queue will meet do (app/neighbor_counts.py, chip_smoke.py).
 FORCE_QUEUE = 32
 FORCE_MARGIN = 0.05
+# The force kernel's tile rule (kTileSpan and kTileCrowd in csrc/sweeps.cu):
+# a warp takes its tile path when its rows lie in one x-run of cells or in
+# two, and either those of each run are at most FORCE_TILE_SPAN cells apart,
+# first to last, or some row's own three cells of its run hold
+# FORCE_TILE_CROWD rows or more.
+FORCE_TILE_SPAN = 2
+FORCE_TILE_CROWD = 64
 
 # Columns of force_xsph_emit's rows, as the TPU's emitted rows
 # (pallas_sweeps.py:775): npx npy npz vx vy vz ax ay az rho, then zeros.
@@ -453,18 +460,66 @@ def _force_sources(key, pos, vel, rho, cell_start, cell_end,
     return sources
 
 
+def _warps(key: torch.Tensor, num_cells: int, nx: int):
+    """``force_xsph_kernel``'s warps, [ceil(N / 32)] each (the partial last
+    warp padded as the kernel's rows out of range, with key ``num_cells``):
+    whether a row is fluid, whether all rows are, whether they lie in the
+    x-runs (grid rows of ``nx`` cells) of lanes 0 and 31 alone, whether
+    each of those runs' rows span at most ``FORCE_TILE_SPAN`` cells, and
+    whether some row's own three cells of its run (x - 1 to x + 1) hold
+    ``FORCE_TILE_CROWD`` rows or more, counted from the keys."""
+    n = key.shape[0]
+    fluid = key < num_cells
+    k = key.long().clamp_max(num_cells - 1)
+    x = k % nx
+    ends = torch.zeros(num_cells + 1, dtype=torch.long, device=key.device)
+    ends[1:] = torch.cumsum(torch.bincount(k[fluid], minlength=num_cells), 0)
+    own = ends[k - x + (x + 1).clamp_max(nx - 1) + 1] - ends[
+        k - x + (x - 1).clamp_min(0)]
+    pad = -(-n // 32) * 32
+    w = torch.full((pad,), num_cells, dtype=torch.long, device=key.device)
+    w[:n] = key
+    w = w.reshape(-1, 32)
+    crowded = torch.zeros(pad, dtype=torch.bool, device=key.device)
+    crowded[:n] = fluid & (own >= FORCE_TILE_CROWD)
+    run, run0, run31 = w // nx, w[:, :1] // nx, w[:, -1:] // nx
+    first = run == run0
+    last0 = torch.where(first, w, w[:, :1]).amax(1)   # the first run's last
+    first1 = torch.where(first, w[:, -1:], w).amin(1)  # the last run's first
+    narrow = ((last0 - w[:, 0] < FORCE_TILE_SPAN)
+              & (w[:, -1] - first1 < FORCE_TILE_SPAN))
+    return (w < num_cells, (w < num_cells).all(1),
+            (first | (run == run31)).all(1), narrow,
+            crowded.reshape(-1, 32).any(1))
+
+
 def tile_warp_mask(key: torch.Tensor, num_cells: int, nx: int
                    ) -> torch.Tensor:
     """Which warps of ``force_xsph_kernel`` take its tile path, [N // 32]
     bool: of the sorted rows' aligned groups of 32 (the kernel's warps; a
     partial last one never does), those whose rows are all fluid (``key <
-    num_cells``) and of one cell, or of two cells side by side in x (keys
-    k and k + 1 in one grid row of ``nx`` cells).  Plain torch, on any
-    device."""
-    w = key[:key.shape[0] // 32 * 32].reshape(-1, 32)
-    k0 = w[:, :1]
-    pair = (w == k0 + 1) & (k0 % nx + 1 < nx)
-    return ((w == k0) | pair).all(1) & (w[:, 0] < num_cells)
+    num_cells``) and lie in one x-run (one grid row of ``nx`` cells) or in
+    two, and either the rows of each run are at most ``FORCE_TILE_SPAN``
+    cells apart from the first to the last, empty cells between included,
+    or some row's own three cells of its run hold ``FORCE_TILE_CROWD`` rows
+    or more.  Plain torch, on any device."""
+    _, fluid, two_runs, narrow, crowded = _warps(key, num_cells, nx)
+    return (fluid & two_runs & (narrow | crowded))[:key.shape[0] // 32]
+
+
+def queue_warp_reasons(key: torch.Tensor, num_cells: int, nx: int
+                       ) -> dict:
+    """Why the warps with a fluid row that do not take the force kernel's
+    tile path (:func:`tile_warp_mask`) walk and queue, counted by the first
+    reason that holds: ``non_fluid`` (a ghost or padding row among them, or
+    the partial last warp), ``runs`` (rows in three x-runs or more) and
+    ``span`` (one run or two, one of them wider than ``FORCE_TILE_SPAN``
+    cells, and no row's three cells crowded)."""
+    rows, fluid, two_runs, narrow, crowded = _warps(key, num_cells, nx)
+    some = rows.any(1)
+    return {"non_fluid": int((some & ~fluid).sum()),
+            "runs": int((fluid & ~two_runs).sum()),
+            "span": int((fluid & two_runs & ~narrow & ~crowded).sum())}
 
 
 def tile_warp_count(key: torch.Tensor, num_cells: int, nx: int) -> int:

@@ -10,9 +10,10 @@ where the sweeps take the ghost structure as sources; the emitted-row
 transport (``SimConfig.emit_rows``) bit-identical to the default on each;
 and the force kernel's source records (``pack_sources``,
 ``density_sources``) against the same oracle; and the force kernel's tile
-rule (``tile_warp_count``: aligned warps of 32 rows in one fluid cell or
-two side by side in x) on the blocking fixtures, built to break a kernel's
-blocking.
+rule (``tile_warp_count``: aligned warps of 32 fluid rows in one x-run of
+cells or two, each run's within two cells or a row's three cells crowded)
+on the blocking fixtures, built to break a kernel's blocking, and on
+crowded cells in one x-run and across the end of one.
 
 CUDA (marker ``cuda``, skipped without a card): each kernel against its
 plain version; the force kernels' tile-path counter against
@@ -714,21 +715,35 @@ def test_blocking_fixtures_are_what_they_claim():
 
 
 def whole_warps(cs, ce, nx):
-    """Aligned groups of 32 rows that one cell, or two cells side by side
-    in x, hold whole, from the cells' ranges alone."""
+    """Aligned groups of 32 rows that lie in one x-run of cells or in two,
+    and either the rows of each run are at most ``FORCE_TILE_SPAN`` cells
+    apart (first to last) or some row's own three cells of its run hold
+    ``FORCE_TILE_CROWD`` rows or more, from the cells' ranges alone."""
     cell = torch.repeat_interleave(torch.arange(cs.shape[0]), ce - cs)
     w = cell[:cell.shape[0] // 32 * 32].reshape(-1, 32)
-    first, last = w[:, 0], w[:, -1]
-    return int(((last == first) | ((last == first + 1)
-                                   & (first % nx != nx - 1))).sum())
+    count = 0
+    for rows in w.tolist():
+        runs = {}
+        for c in rows:
+            runs.setdefault(c // nx, []).append(c % nx)
+        narrow = all(max(xs) - min(xs) < sweeps.FORCE_TILE_SPAN
+                     for xs in runs.values())
+        crowded = any(
+            int(ce[c - c % nx + min(c % nx + 1, nx - 1)]
+                - cs[c - c % nx + max(c % nx - 1, 0)])
+            >= sweeps.FORCE_TILE_CROWD for c in rows)
+        count += len(runs) <= 2 and (narrow or crowded)
+    return count
 
 
 @pytest.mark.parametrize("name", BLOCKING)
 def test_tile_warp_count_on_blocking_fixtures(name):
     """The force kernel's tile rule, reckoned from the sorted keys: the
-    warps that a cell or two cells side by side hold whole (the crowded
-    cells' warps, those that straddle the crowded cell and its x neighbours
-    among them, and no others: every other cell holds 2 rows, or 1)."""
+    warps whose rows lie in one or two x-runs of cells, each run's within
+    the span or a row's three cells crowded (the crowded cells' warps,
+    those that straddle the crowded cell and its x neighbours among them,
+    and no others: every other cell holds 2 rows, or 1, so any other warp
+    spans more cells)."""
     (key, _, _, _, cs, ce, pv, _), _ = blocking_inputs(name)
     got = sweeps.tile_warp_count(key, pv.num_cells, pv.nx)
     assert got == whole_warps(cs, ce, pv.nx)
@@ -742,27 +757,46 @@ def test_tile_warp_count_on_blocking_fixtures(name):
 
 
 def test_tile_rule_ignores_partial_warps_and_non_fluid_rows():
-    """Only whole aligned warps of one fluid key, or of two keys side by
-    side in one grid row: not a partial last warp, not 32 ghost or padding
-    rows (key num_cells), not 32 rows of one key that straddle two aligned
-    warps, not keys apart or across the end of a grid row, not three
-    keys."""
-    nc, nx = 512, 8
+    """Only whole aligned warps of fluid rows in one x-run of cells or in
+    two, each run's rows within ``FORCE_TILE_SPAN`` cells: not a partial
+    last warp, not 32 ghost or padding rows (key num_cells), not 32 rows of
+    one key that straddle two aligned warps, not a run wider than the span
+    (with or without empty cells inside it) unless a row's own three cells
+    hold ``FORCE_TILE_CROWD`` rows, not three runs; two runs, as across the
+    end of a grid row, are taken."""
+    nc, nx, span = 512, 8, sweeps.FORCE_TILE_SPAN
+
+    def count(*groups):
+        k = torch.cat([torch.full((m,), c, dtype=torch.int32)
+                       for c, m in groups])
+        return sweeps.tile_warp_count(k, nc, nx)
+
     k = torch.tensor([5] * 32 + [7] * 40, dtype=torch.int32)
     assert sweeps.tile_warp_count(k, nc, nx) == 2    # the last 8 are partial
     assert sweeps.tile_warp_count(k[:63], nc, nx) == 1
     assert sweeps.tile_warp_count(k[:31], nc, nx) == 0
     pad = torch.full((64,), nc, dtype=torch.int32)
     assert sweeps.tile_warp_count(torch.cat([k[:32], pad]), nc, nx) == 1
-    shifted = torch.tensor([3] * 16 + [5] * 32 + [9] * 16, dtype=torch.int32)
-    assert sweeps.tile_warp_count(shifted, nc, nx) == 0
+    # 3 | 5 (three cells), then 5 | 9 (one cell in each of two runs)
+    assert count((3, 16), (5, 32), (9, 16)) == 1 + (span >= 3)
     pair = torch.tensor([4] * 16 + [5] * 16 + [6] * 20 + [7] * 12,
                         dtype=torch.int32)
     assert sweeps.tile_warp_count(pair, nc, nx) == 2
-    wraps = torch.tensor([7] * 16 + [8] * 16, dtype=torch.int32)
-    assert sweeps.tile_warp_count(wraps, nc, nx) == 0
-    three = torch.tensor([4] * 10 + [5] * 12 + [6] * 10, dtype=torch.int32)
-    assert sweeps.tile_warp_count(three, nc, nx) == 0
+    assert count((7, 16), (8, 16)) == 1                  # a run's end
+    assert count((6, 8), (7, 8), (8, 8), (9, 8)) == 1    # two in each run
+    assert count((7, 8), (8, 8), (8 + span, 16)) == 0    # one run too wide
+    assert count((4, 10), (5, 12), (6, 10)) == (span >= 3)
+    assert count((4, 16), (6, 16)) == (span >= 3)        # an empty cell
+    assert count((2, 16), (2 + span - 1, 16)) == 1       # the widest taken
+    assert count((2, 16), (2 + span, 16)) == 0
+    assert count((7, 10), (8, 12), (16, 10)) == 0        # three runs
+    # a run wider than the span, taken when a row's own three cells (x - 1
+    # to x + 1) hold the crowd: 3 | 3 | 3, 4, 6 with 6 + 2 over the crowd
+    crowd = sweeps.FORCE_TILE_CROWD
+    assert count((3, crowd + 6), (4, 2), (6, 33)) == 3
+    assert count((3, crowd - 3), (4, 2), (6, 33)) == 2   # 3 | 3, 4, 6 | 6
+    assert count((3, crowd + 6), (4, 2), (14, 24)) == 3  # across a run end
+    assert count((2, crowd + 6), (4, 2), (9, 8), (17, 16)) == 2
     last = torch.tensor([nc - 1] * 32, dtype=torch.int32)
     assert sweeps.tile_warp_count(last, nc, nx) == 1
     assert sweeps.tile_warp_count(torch.zeros(0, dtype=torch.int32), nc,
@@ -771,18 +805,56 @@ def test_tile_rule_ignores_partial_warps_and_non_fluid_rows():
                        torch.tensor([True, True]))
 
 
-def pair_cells_inputs(crowd, far=0, device="cpu"):
-    """Sweep inputs of two crowded cells side by side in x: 2 rows in every
-    cell of the lower three layers, ``crowd`` more in each of (4, 1, 4) and
-    (5, 1, 4) (keys 100 and 101), and ``far`` rows in cell (0, 0, 0), which
-    shift the others against the warps.  The density is made from each
-    row's ``orig_id``, within 1% of rest.  Returns (args, state, the
-    crowd's mask)."""
-    spawn = TS.concat_spawns(
-        _lattice_spawn(_cells(range(8), range(3), range(8)), 2, 22,
-                       crowd=crowd, crowd_cell=(4, 1, 4)),
-        _lattice_spawn(np.zeros((0, 3)), 0, 23, crowd=crowd,
-                       crowd_cell=(5, 1, 4)))
+def test_queue_warp_reasons():
+    """The warps with a fluid row that the tile rule turns away, by the
+    first reason that holds: a non-fluid row or the partial last warp,
+    three x-runs or more, a run wider than the span; every other warp
+    with a fluid row takes the tile path."""
+    nc, nx, span = 512, 8, sweeps.FORCE_TILE_SPAN
+    groups = [(4, 32),                              # tile
+              (5, 16), (5 + span, 16),              # span
+              (15, 10), (16, 12), (24, 10),         # runs
+              (30, 32),                             # tile
+              (40, 20), (nc, 12),                   # non-fluid
+              (nc, 32)]                             # no fluid row
+    k = torch.cat([torch.full((m,), c, dtype=torch.int32)
+                   for c, m in groups])
+    assert sweeps.queue_warp_reasons(k, nc, nx) == {
+        "non_fluid": 1, "runs": 1, "span": 1}
+    assert sweeps.tile_warp_count(k, nc, nx) == 2
+    partial = torch.full((40,), 4, dtype=torch.int32)
+    assert sweeps.queue_warp_reasons(partial, nc, nx) == {
+        "non_fluid": 1, "runs": 0, "span": 0}
+    assert sweeps.queue_warp_reasons(k[:0], nc, nx) == {
+        "non_fluid": 0, "runs": 0, "span": 0}
+
+
+# Crowded cells of the lattice fixture (x, y, z): two side by side in one
+# x-run (keys 100 and 101), four in one x-run, two at the end of one x-run
+# and the start of the next (keys 95 and 96, seven cells apart in x), and
+# two at the end of a z-layer and the start of the next y-layer (keys 127
+# and 128, apart in x, y and z).
+CROWD_CELLS = {
+    "pair": ((4, 1, 4), (5, 1, 4)),
+    "row": ((3, 1, 4), (4, 1, 4), (5, 1, 4), (6, 1, 4)),
+    "run_end": ((7, 1, 3), (0, 1, 4)),
+    "layer_end": ((7, 1, 7), (0, 2, 0)),
+}
+
+
+def pair_cells_inputs(crowd, far=0, device="cpu", cells="pair"):
+    """Sweep inputs of crowded cells (``CROWD_CELLS[cells]``; by default two
+    side by side in x): 2 rows in every cell of the lower three layers,
+    ``crowd`` more in each crowded cell, and ``far`` rows in cell (0, 0,
+    0), which shift the others against the warps.  The density is made
+    from each row's ``orig_id``, within 1% of rest.  Returns (args, state,
+    the crowd's mask)."""
+    first, *more = CROWD_CELLS[cells]
+    spawn = _lattice_spawn(_cells(range(8), range(3), range(8)), 2, 22,
+                           crowd=crowd, crowd_cell=first)
+    for seed, cell in enumerate(more, 23):
+        spawn = TS.concat_spawns(spawn, _lattice_spawn(
+            np.zeros((0, 3)), 0, seed, crowd=crowd, crowd_cell=cell))
     if far:     # after the others, so that their orig_id stay the same
         spawn = TS.concat_spawns(spawn, _lattice_spawn([(0, 0, 0)], far, 21))
     state = TS.state_from_spawn(spawn, device=device)
@@ -796,23 +868,18 @@ def pair_cells_inputs(crowd, far=0, device="cpu"):
         np.float32), device=device)[s.orig_id.long().clamp(0, n - 1)]
     rho = torch.where(key < pv.num_cells, 1000.0 * (1.0 + 0.01 * u),
                       torch.zeros((), device=device))
-    crowd_rows = (key == 100) | (key == 101)
+    crowd_rows = torch.zeros_like(key, dtype=torch.bool)
+    for x, y, z in CROWD_CELLS[cells]:
+        crowd_rows |= key == x + 8 * (z + 8 * y)
     return (key, pos, vel, rho, cs, ce, pv, ghosts), s, crowd_rows
 
 
-def test_tile_rule_takes_pairs_of_cells():
-    """Two crowded cells side by side in x: the warps that straddle them
-    take the tile path too, the rule agrees with the cells' ranges, and the
-    plain force sweep there matches the all-pairs one."""
+def assert_force_matches_all_pairs(args, s):
+    """The plain force sweep on ``args`` against the all-pairs one
+    (``brute_kernels.force_plain``) on the fluid rows."""
     from sph_tpu_torch.physics import brute_kernels as BK
-    (key, pos, vel, rho, cs, ce, pv, g), s, crowd = pair_cells_inputs(160)
-    assert int(crowd.sum()) == 2 * 162      # key 100 from row 200 to 362
-    mask = sweeps.tile_warp_mask(key, pv.num_cells, pv.nx)
-    w = key[:mask.shape[0] * 32].reshape(-1, 32)
-    assert int((mask & (w[:, 0] != w[:, -1])).sum()) == 1
-    # rows 200 to 524: the 9 aligned warps from row 224 to row 512
-    assert int(mask.sum()) == whole_warps(cs, ce, pv.nx) == 9
-    npos, nvel, acc = sweeps.force_xsph(key, pos, vel, rho, cs, ce, pv, g)
+    key, pos, vel, rho, cs, ce, pv, g = args
+    npos, nvel, acc = sweeps.force_xsph(*args)
     m = s.fluid_mask()
     pres = torch.clamp_min(pv.gas_k * (rho - pv.rho0), 0.0)
     want = BK.force_plain(pos, vel, rho, pres, m.float(), pv)
@@ -820,6 +887,49 @@ def test_tile_rule_takes_pairs_of_cells():
     np.testing.assert_allclose(nvel[m], want[1][m], rtol=0, atol=VEL_ATOL)
     np.testing.assert_allclose(acc[m], want[2][m], rtol=ACC_RTOL,
                                atol=ACC_ATOL)
+
+
+def test_tile_rule_takes_pairs_of_cells():
+    """Two crowded cells side by side in x: the warps that straddle them
+    take the tile path too, and so do the two at the crowd's edges, whose
+    sparse rows' own three cells hold a crowded one; the rule agrees with
+    the cells' ranges, and the plain force sweep there matches the
+    all-pairs one."""
+    args, s, crowd = pair_cells_inputs(160)
+    key, cs, ce, pv = args[0], args[4], args[5], args[6]
+    assert int(crowd.sum()) == 2 * 162      # key 100 from row 200 to 362
+    mask = sweeps.tile_warp_mask(key, pv.num_cells, pv.nx)
+    w = key[:mask.shape[0] * 32].reshape(-1, 32)
+    assert int((mask & (w[:, 0] != w[:, -1])).sum()) == 3
+    # rows 200 to 524: the 9 aligned warps from row 224 to row 512, and
+    # those from rows 192 (keys 96 to 100) and 512 (keys 101 to 111)
+    assert int(mask.sum()) == whole_warps(cs, ce, pv.nx) == 11
+    assert bool(mask[6:17].all())
+    assert_force_matches_all_pairs(args, s)
+
+
+@pytest.mark.parametrize("cells", ["row", "run_end", "layer_end"])
+def test_tile_rule_on_crowded_cells_in_runs(cells):
+    """Four crowded cells side by side in one x-run, and two crowded cells
+    at the end of one x-run (or z-layer) and the start of the next: every
+    aligned warp of their rows takes the tile path, those that straddle
+    two cells too, the rule agrees with the cells' ranges, and the plain
+    force sweep there matches the all-pairs one."""
+    args, s, crowd = pair_cells_inputs(160, far=8, cells=cells)
+    key, cs, ce, pv = args[0], args[4], args[5], args[6]
+    mask = sweeps.tile_warp_mask(key, pv.num_cells, pv.nx)
+    assert int(mask.sum()) == whole_warps(cs, ce, pv.nx)
+    rows = torch.nonzero(crowd).flatten()
+    inside = torch.arange(-(-int(rows[0]) // 32), (int(rows[-1]) + 1) // 32)
+    assert int(crowd.sum()) == 162 * len(CROWD_CELLS[cells])
+    assert bool(mask[inside].all())            # the crowd's whole warps
+    # the warp across the first two crowded cells: of two runs but in "row"
+    x, y, z = CROWD_CELLS[cells][1]
+    second = int(torch.nonzero(key == x + 8 * (z + 8 * y))[0])
+    w = key[second // 32 * 32:][:32]
+    assert second % 32 and bool(mask[second // 32])
+    assert (int(w[0]) // pv.nx != int(w[-1]) // pv.nx) == (cells != "row")
+    assert_force_matches_all_pairs(args, s)
 
 
 def test_queue_edge_and_movers_reach_the_kernels_other_paths():
@@ -1006,34 +1116,82 @@ def test_force_kernels_count_tile_warps_on_cuda(cuda, name):
     assert torch.equal(per, emit)
 
 
-@pytest.mark.cuda
-def test_force_kernel_rows_do_not_depend_on_their_warps_path_on_cuda(cuda):
-    """Two crowded cells side by side, shifted against the warps by 0, 8,
-    16 and 24 rows put in a far corner cell: their rows move between tile
-    warps of one cell, tile warps of two and queue warps, and their outputs
-    stay bit-equal (every path adds a row's sources in the same order, and
-    a warp of two cells reads no source outside a row's own 3 x 3 x 3
-    block); each launch matches the plain version."""
-    outs, paths, pair_warps = [], [], 0
+# Rows added to each crowded cell of pair_cells_inputs where its rows move
+# between the kernel's paths as the warps shift: 30 rows a cell, 62 in a
+# row's own three cells, under FORCE_TILE_CROWD (the card's 1,202 a cell
+# take the tile path whatever the shift).
+SHIFT_CROWD = 28
+
+
+def rows_on_every_path(device, cells, crowd):
+    """The crowded cells ``cells`` (``crowd`` rows more each) shifted
+    against the warps by 0, 8, 16 and 24 rows put in a far corner cell:
+    each launch matches the plain version and counts ``tile_warp_count``
+    tile warps, and the crowd's rows are bit-equal across the shifts.
+    Returns how many of those rows took the tile path at some shifts and
+    not at others, and the tile warps whose rows lie in two cells of one
+    x-run or in two x-runs."""
+    outs, paths, cells2, runs2 = [], [], 0, 0
     for shift in (0, 8, 16, 24):
-        args, s, crowd = pair_cells_inputs(CROWD_CARD // 2, far=shift,
-                                           device=cuda)
+        args, s, rows = pair_cells_inputs(crowd, far=shift, device=device,
+                                          cells=cells)
         key, pv = args[0], args[6]
-        got = sweeps.force_xsph(*args)
+        counter = torch.zeros(1, dtype=torch.int32, device=device)
+        got = sweeps.force_xsph(*args, tile_warps=counter)
         want = sweeps.force_xsph_plain(*args)
         torch.testing.assert_close(got[0], want[0], rtol=0, atol=POS_ATOL)
         torch.testing.assert_close(got[1], want[1], rtol=0, atol=VEL_ATOL)
         torch.testing.assert_close(got[2], want[2], rtol=ACC_RTOL,
                                    atol=ACC_ATOL)
-        order = torch.argsort(s.orig_id[crowd])
-        outs.append(torch.cat(got, 1)[crowd][order])
+        assert int(counter) == sweeps.tile_warp_count(key, pv.num_cells,
+                                                      pv.nx)
+        order = torch.argsort(s.orig_id[rows])
+        outs.append(torch.cat(got, 1)[rows][order])
         tile = sweeps.tile_warp_mask(key, pv.num_cells, pv.nx)
         w = key[:32 * tile.shape[0]].reshape(-1, 32)
-        pair_warps += int((tile & (w[:, 0] != w[:, -1])).sum())
-        row_tile = torch.zeros(key.shape[0], dtype=torch.bool, device=cuda)
+        two = w[:, 0] // pv.nx != w[:, -1] // pv.nx
+        cells2 += int((tile & ~two & (w[:, 0] != w[:, -1])).sum())
+        runs2 += int((tile & two).sum())
+        row_tile = torch.zeros(key.shape[0], dtype=torch.bool, device=device)
         row_tile[:32 * tile.shape[0]] = tile.repeat_interleave(32)
-        paths.append(row_tile[crowd][order])
+        paths.append(row_tile[rows][order])
     for got in outs[1:]:
         assert torch.equal(got, outs[0])
     flips = torch.stack(paths).any(0) & ~torch.stack(paths).all(0)
-    assert int(flips.sum()) >= 32 and pair_warps >= 4
+    return int(flips.sum()), cells2, runs2
+
+
+@pytest.mark.cuda
+def test_force_kernel_rows_do_not_depend_on_their_warps_path_on_cuda(cuda):
+    """Two crowded cells side by side, shifted against the warps: with 30
+    rows a cell their rows move between tile warps of two cells and queue
+    warps, with 1,202 between tile warps of one cell, of two and of the
+    crowd's edges, and their outputs stay bit-equal (every path adds a
+    row's sources in the same order, and a warp of several cells reads no
+    source outside a row's own 3 x 3 x 3 block); each launch matches the
+    plain version."""
+    flips, cells2, _ = rows_on_every_path(cuda, "pair", SHIFT_CROWD)
+    assert flips >= 32 and cells2 >= 4
+    flips, cells2, _ = rows_on_every_path(cuda, "pair", CROWD_CARD // 2)
+    assert cells2 >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", ["row", "run_end", "layer_end"])
+def test_force_kernel_rows_across_runs_do_not_depend_on_their_path_on_cuda(
+        cuda, cells):
+    """Four crowded cells in one x-run, and two at the end of one x-run (or
+    z-layer) and the start of the next, shifted against the warps: rows
+    move between queue warps and tile warps of two cells and of two
+    x-runs, whose second run lies seven cells away in x (and one in y and
+    z) from the warp's first row, and their outputs stay bit-equal, with
+    30 rows a cell and with 1,202; each launch matches the plain version
+    and counts the rule's tile warps."""
+    flips, cells2, runs2 = rows_on_every_path(cuda, cells, SHIFT_CROWD)
+    assert flips >= 32
+    if cells == "row":
+        assert cells2 >= 12 and runs2 == 0
+    else:
+        assert runs2 >= 3
+    flips, cells2, runs2 = rows_on_every_path(cuda, cells, CROWD_CARD // 2)
+    assert runs2 >= (0 if cells == "row" else 3)
