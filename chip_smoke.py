@@ -95,9 +95,12 @@ prints no result line):
              a substep);
 6b. export — the frame export of ``app.bench.export_frames`` on the final
              ``export_4m`` state: four PNGs read back and drawn on, the
-             colors on the card equal to the port's colors of the same
-             state on the CPU, and the host rasterizer against its plain
-             version on a subsample;
+             frames composed on the card equal to the host path's, two
+             ``launches.splat`` a render, the splat kernels' device time
+             against their bound (the kernels' record), the colors on the
+             card equal to the port's colors of the same state on the CPU,
+             and the host rasterizer against its plain version on a
+             subsample;
 6c. scene  — the scene's main paths (``app/scene_paths.py``: the river
              at 65,536 asked rows, art preset 10's torus vortex and the
              fountain at 50,000): the port's Scene built with no device
@@ -185,13 +188,16 @@ and on each rank of (b);
 ``cell_table_kernel`` with the times and the bound of the launch the substep
 makes, the state's ten other columns carried, and the table alone and the
 ghosts' table, launched once per ``run_substeps``, under keys of their own;
-the micro-kernels with their second size under ``second``; a kernel
+the micro-kernels with their second size under ``second``;
+``splat_kernel``, the three kernels of ``csrc/splat.cu`` together, with
+its launches in phase ``export`` and ``launches_per_render``; a kernel
 faster than its bound, at either size, fails the run), the
 ``nvidia-smi`` name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 
@@ -281,6 +287,9 @@ KERNELS = {
               "micro"),
     "expand": ("sph_tpu_torch/csrc/micro.cu",
                "scripts/proto_bfly_kernel.py:42", "micro"),
+    "splat": ("sph_tpu_torch/csrc/splat.cu",
+              "none: the JAX package composes its frames on the host "
+              "(sph_tpu/viz/splat.py, native/splat_raster.cpp)", "export_4m"),
 }
 
 # The card's peaks for the bounds (NVIDIA H100 SXM data sheet, at 700 W):
@@ -1775,36 +1784,66 @@ def phase_main(dev, config):
 
 
 EXPORT_SUBSAMPLE = 2000      # every 2000th row for the rasterizer check
+SPLAT_REPS = 20              # renders over which the splat kernels are timed
 
 
 def phase_export(dev, state, config):
     """The frame export of ``app.bench.export_frames`` on ``state``, the
     final state of ``config``'s main path, into a temporary directory: each
     PNG read back (``viz.splat.read_png``), 960x540 and not all background;
-    the colors of each exported drive computed on the card equal to the
+    the frame composed on the card (``csrc/splat.cu``) equal, pixel for
+    pixel, to the host path's frame of the same state
+    (``splat.render_frame_host``) for the height and speed drives; the
+    colors of each exported drive computed on the card equal to the
     port's colors of the same state on the CPU within 1e-5 (palette 1 has
     no hash); the host rasterizer against its plain version on a subsample
     at 240x135 with the export's point size, under 2% of pixels off by more
     than 2/255 (tests/test_viz.py).  (Discs of a few pixels overlap nearly
     everywhere in this dense block, where the plain version, which writes
     offset by offset, keeps other colors than the rasterizer: the tests
-    hold that case on a sparse 2k state.)"""
+    hold that case on a sparse 2k state.)
+
+    Returns the ``splat`` record of the kernels' record: two
+    ``launches.splat`` a render (asserted for every render of the phase),
+    the three kernels' device time a frame of the speed drive
+    (``torch.profiler``, over ``SPLAT_REPS`` renders) and the whole
+    render's on the host's clock (``render_ms``), the host path's
+    whole render as the plain time, and the bound of
+    ``benchmark/metrics/splat_roofline.py``'s count of bytes and
+    operations."""
     import dataclasses
     import os
     import tempfile
 
     import numpy as np
     import torch
+    from benchmark.metrics import splat_roofline as roof
     from sph_tpu_torch.app import bench, configs
+    from sph_tpu_torch.utils import trace
     from sph_tpu_torch.viz import palettes, splat
     from sph_tpu_torch.viz.camera import fit_camera
 
+    def card_render(*args, **kw):
+        since = trace.launches()
+        img = splat.render_frame(*args, **kw)
+        moved = trace.launches(since)
+        if moved != {"splat": 2}:
+            raise AssertionError(f"export {config}: a render launched "
+                                 f"{moved}, expected two splat launches")
+        return img
+
     cfg = configs.CONFIGS[config]
     n_fluid = int(state.fluid_mask().sum())
+    n_ghost = int((state.ghost > 0).sum())
     with tempfile.TemporaryDirectory() as out:
+        since = trace.launches()
         t0 = time.perf_counter()
         paths = bench.export_frames(state, cfg, out)
         seconds = time.perf_counter() - t0
+        launches = trace.launches(since).get("splat", 0)
+        if launches != 2 * len(paths):
+            raise AssertionError(f"export {config}: {launches} splat "
+                                 f"launches for {len(paths)} frames")
         background = np.asarray([7, 10, 15], np.uint8)   # splat's default
         for path in paths:
             img = splat.read_png(path)
@@ -1817,10 +1856,56 @@ def phase_export(dev, state, config):
                 f"{os.path.getsize(path)} bytes, {drawn!r} of the pixels "
                 f"drawn")
     log(f"export {config}: {len(paths)} frames of {n_fluid} particles in "
-        f"{seconds!r} s (colors on the card; projection, sort, rasterizer "
-        f"and PNG on the host)")
+        f"{seconds!r} s (composed on the card, PNG on the host)")
 
     cam = fit_camera(np.asarray(cfg.box_half, np.float32))
+    size = dict(width=960, height=540, particle_radius=0.5 * cfg.h)
+    for mode in (palettes.DRIVE_HEIGHT, palettes.DRIVE_SPEED):
+        vp = bench.export_params(cfg, mode)
+        card = card_render(state, vp, cam, **size)
+        t0 = time.perf_counter()
+        host_frame = splat.render_frame_host(state, vp, cam, **size)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        apart = int((card != host_frame).any(axis=-1).sum())
+        if apart:
+            raise AssertionError(f"export {config} drive {mode}: the card's "
+                                 f"frame and the host's differ on {apart} "
+                                 f"pixels")
+    log(f"export {config}: the card's frames equal the host path's (height, "
+        f"speed)")
+    # the whole render's wall time, and the kernels' device time a frame,
+    # at the speed drive (the last vp)
+    t0 = time.perf_counter()
+    for _ in range(SPLAT_REPS):
+        card_render(state, vp, cam, **size)
+    render_ms = (time.perf_counter() - t0) * 1e3 / SPLAT_REPS
+    names = re.compile(r"(?<![A-Za-z0-9_])(" + "|".join(roof.KERNELS)
+                       + r")(?![A-Za-z0-9_])")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(SPLAT_REPS):
+            card_render(state, vp, cam, **size)
+        torch.cuda.synchronize()
+    hits = [e.time_range.end - e.time_range.start for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and names.search(e.name)]
+    if len(hits) != len(roof.KERNELS) * SPLAT_REPS:
+        raise AssertionError(f"export {config}: the profiler saw "
+                             f"{len(hits)} splat kernels in {SPLAT_REPS} "
+                             f"renders")
+    k_ms = sum(hits) * 1e-3 / SPLAT_REPS
+    pixels = size["width"] * size["height"]
+    rec = report(config, "splat", k_ms, plain_ms,
+                 n_fluid * roof.BYTES_PER_FLUID_ROW
+                 + n_ghost * roof.BYTES_PER_GHOST_ROW
+                 + pixels * roof.BYTES_PER_PIXEL,
+                 roof.OPS_PER_FLUID_ROW * n_fluid
+                 + roof.OPS_PER_PIXEL * pixels, n_fluid)
+    rec.update(launches=launches, launches_per_render=2, render_ms=render_ms)
+    log(f"export {config}: the card's render {render_ms!r} ms a frame on the "
+        f"host's clock, its three kernels {k_ms!r} ms")
     view = cam.view_matrix()
     host = {f: getattr(state, f).cpu() for f in (
         "pos", "vel", "pressure", "density", "color_group")}
@@ -1848,7 +1933,7 @@ def phase_export(dev, state, config):
     vp = bench.export_params(cfg, palettes.DRIVE_SPEED)
     a, b = (render(sub, vp, cam, width=240, height=135,
                    particle_radius=0.5 * cfg.h)
-            for render in (splat.render_frame, splat.render_frame_plain))
+            for render in (splat.render_frame_host, splat.render_frame_plain))
     off = float((np.abs(a.astype(int) - b.astype(int)) > 2).any(
         axis=-1).mean())
     if not off < 0.02:
@@ -1858,6 +1943,7 @@ def phase_export(dev, state, config):
         f"{int(sub.pos.shape[0])} rows at 240x135: {off!r} of the pixels off "
         f"by more than 2/255, {float((a != background).any(axis=-1).mean())!r}"
         f" drawn")
+    return rec
 
 
 def to_device(obj, dev):
@@ -2715,6 +2801,10 @@ def gallery_in(dev, tmp):
     expect = dict.fromkeys(counts, 0)
     expect.update(cell_table=total, density=total, force_xsph=total,
                   container=total)
+    # each impostor still is composed on the card: two splat launches
+    impostors = sum(scene.settings.render_mode == 1 for _, scene, _ in shots)
+    if impostors:
+        expect["splat"] = 2 * impostors
     if counts != expect:
         raise AssertionError(f"gallery: launches {counts}, expected {expect}")
     log(f"gallery: {len(shots)} stills at {gallery.W}x{gallery.H}, {total} "
@@ -3045,7 +3135,8 @@ def main(argv=None) -> int:
         graph_ms[config] = timed(f"graph {config}", phase_graph_bench,
                                  config, final, params, cfg)
         if configs.CONFIGS[config].viz_export:
-            timed(f"export {config}", phase_export, dev, final, config)
+            measured[config]["splat"] = timed(f"export {config}",
+                                              phase_export, dev, final, config)
         if config == KERNELS["brute_density"][2]:
             measured[config]["brute_density"]["final_ms"] = timed(
                 f"final {config}", phase_brute_final, dev, final, config)

@@ -51,20 +51,25 @@ _PROGRAMS: "collections.OrderedDict[Hashable, Program]" = (
 def _flatten(obj) -> Tuple[List[torch.Tensor], Hashable]:
     """(tensor leaves in a fixed order, a hashable spec of the rest)."""
     leaves: List[torch.Tensor] = []
+    return leaves, _spec(obj, leaves)
 
-    def spec(o):
-        if isinstance(o, torch.Tensor):
-            leaves.append(o)
-            return "T"
-        if dataclasses.is_dataclass(o):
-            return (type(o), tuple((f.name, spec(getattr(o, f.name)))
-                                   for f in dataclasses.fields(o)))
-        if isinstance(o, tuple):
-            return (type(o), tuple(spec(x) for x in o))
-        hash(o)      # anything else is baked into the capture
-        return ("=", o)
 
-    return leaves, spec(obj)
+def _spec(o, leaves: List[torch.Tensor]) -> Hashable:
+    """The spec of ``o``; its tensors are appended to ``leaves``.  A
+    function of the module, not a closure: a closure that calls itself is
+    a reference cycle, which would hold ``leaves`` (a frame's input state)
+    until the garbage collector ran, and the allocator would take new
+    device memory for the frames in between."""
+    if isinstance(o, torch.Tensor):
+        leaves.append(o)
+        return "T"
+    if dataclasses.is_dataclass(o):
+        return (type(o), tuple((f.name, _spec(getattr(o, f.name), leaves))
+                               for f in dataclasses.fields(o)))
+    if isinstance(o, tuple):
+        return (type(o), tuple(_spec(x, leaves) for x in o))
+    hash(o)      # anything else is baked into the capture
+    return ("=", o)
 
 
 def _unflatten(spec: Hashable, leaves) -> Any:

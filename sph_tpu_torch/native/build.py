@@ -72,6 +72,29 @@ class ContainerRowsC(ctypes.Structure):
             "pos", "vel", "acc", "density", "pressure", "foam")])
 
 
+class SplatCameraC(ctypes.Structure):
+    """ctypes mirror of ``SphSplatCamera`` in ``csrc/splat.h``: the camera,
+    frame and light of one splat composition, passed by value to its
+    kernels."""
+    _fields_ = [("view", (ctypes.c_float * 4) * 3),
+                ("proj", (ctypes.c_float * 4) * 2),
+                ("size", ctypes.c_float),
+                ("light", ctypes.c_float * 3),
+                ("sun", ctypes.c_float * 3),
+                ("background", ctypes.c_float * 3),
+                ("width", ctypes.c_int), ("height", ctypes.c_int),
+                ("footprint", ctypes.c_int), ("lit", ctypes.c_int),
+                ("row_shift", ctypes.c_int)]
+
+
+class SplatOwnersC(ctypes.Structure):
+    """ctypes mirror of ``SphSplatOwners`` in ``csrc/splat.h``: the state's
+    columns that the owners' colours read, and the [12][P] buffer their
+    gathered copies go to."""
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "vel", "pressure", "density", "color_group", "owners")]
+
+
 def _sources():
     names = sorted(f for f in os.listdir(CSRC_DIR)
                    if f.endswith((".cu", ".cuh", ".h")))
@@ -128,8 +151,9 @@ def library_path() -> str:
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (``csrc/*.cu``: the cell table, the cell
-    engine's sweeps, the container pass, the all-pairs kernels and the
-    micro-kernels) with its C signatures declared."""
+    engine's sweeps, the container pass, the all-pairs kernels, the frame
+    export's splat composition and the micro-kernels) with its C
+    signatures declared."""
     lib = ctypes.CDLL(library_path())
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sph_cell_table.argtypes = [p, p, i, i, ctypes.POINTER(CellColumnsC),
@@ -156,6 +180,12 @@ def library() -> ctypes.CDLL:
     lib.sph_brute_density.restype = i
     lib.sph_brute_force.argtypes = [p, p, p, p, p, i, p, p, p, p, p]
     lib.sph_brute_force.restype = i
+    cam = ctypes.POINTER(SplatCameraC)
+    lib.sph_splat_keys.argtypes = [p, p, p, p, i, cam,
+                                   ctypes.POINTER(SplatOwnersC), p, p]
+    lib.sph_splat_keys.restype = i
+    lib.sph_splat_shade.argtypes = [p, p, p, p, cam, p, p, p]
+    lib.sph_splat_shade.restype = i
     lib.sph_smoke.argtypes = [p, p, i, p]
     lib.sph_smoke.restype = i
     lib.sph_expand.argtypes = [p, p, i, i, i, i, p, p]

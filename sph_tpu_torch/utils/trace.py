@@ -11,8 +11,10 @@ trace on the clock of the device's operations: each stretch of the
 device's idle time can be put down to the span the host was in.  The
 frame path's spans: ``sph.run_substeps``, ``sph.neighbor_aux``,
 ``sph.build_ghosts`` and ``sph.graph.*`` (``engine/``, ``neighbors/``),
-and ``sph.impulse.wave``, the wave kick that a frame's prologue runs
-before the frame program (``physics/impulses.wave_impulse``).
+``sph.impulse.wave``, the wave kick that a frame's prologue runs
+before the frame program (``physics/impulses.wave_impulse``), and
+``sph.render``, the frame export's composition on the card
+(``viz/splat.render_frame`` of a CUDA state).
 
 A **counter** (``count(name)``) always counts, one dict increment:
 
@@ -20,7 +22,8 @@ A **counter** (``count(name)``) always counts, one dict increment:
   replays (``engine/graph.py``);
 - ``host_waits``: the frame path's own device-to-host waits (the ghost
   check of ``neighbors/sweeps.prepare``, the ``nonzero`` of
-  ``neighbors/cells.ghost_sort``);
+  ``neighbors/cells.ghost_sort``), and the frame export's one copy of its
+  image to the host (``viz/splat.render_frame`` on the card);
 - ``ghost_builds``: the static ghost structures built
   (``neighbors/cells.build_ghosts``);
 - ``impulses.wave``: the wave kicks (``physics/impulses.wave_impulse``,
@@ -30,7 +33,8 @@ A **counter** (``count(name)``) always counts, one dict increment:
 - ``launches.<kernel>``: the kernels' launches, counted where a wrapper
   launches one (``native/build.launched``, the one counting point) and
   added by the frame program at each replay (``engine/graph.py``); only
-  the CUDA path counts, so on the CPU every one reads 0.
+  the CUDA path counts, so on the CPU every one reads 0.  The export's
+  composition counts ``launches.splat`` twice a frame.
 
 Nothing here runs inside a captured program: a span or counter there
 would run once, at the capture, and never at a replay.

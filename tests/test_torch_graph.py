@@ -21,7 +21,9 @@ Their inputs are built with the port alone:
 """
 import ast
 import dataclasses
+import gc
 import os
+import weakref
 
 import numpy as np
 import pytest
@@ -273,6 +275,27 @@ def test_program_inputs_round_trip_and_key_on_their_shapes():
     fewer = aux._replace(ghosts=None)
     other, ospec = graph._flatten((state, params, buf, params.dt, fewer))
     assert ospec != spec and len(other) == len(leaves) - 5
+
+
+def test_flattened_inputs_are_freed_with_their_last_reference():
+    """Reading a program's inputs keeps none of them: a frame's input
+    state goes as soon as the caller drops it, with the garbage collector
+    off, so the card's memory does not grow by a state a frame until a
+    collection."""
+    state, params, cfg, buf = port_case("ghosts", "cpu")
+    aux = TSTEP.neighbor_aux(state, params, params.dt, cfg)
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        state = state.replace(pos=state.pos.clone())
+        pos = weakref.ref(state.pos)
+        leaves, spec = graph._flatten((state, params, buf, params.dt, aux))
+        assert any(t is pos() for t in leaves)
+        del leaves, spec, state
+        assert pos() is None
+    finally:
+        if was_on:
+            gc.enable()
 
 
 # ---------------------------------------------------------------------------
